@@ -1,0 +1,33 @@
+"""arrow1_tpu_torch: the PyTorch/CUDA port of arrow1_tpu for NVIDIA Hopper.
+
+A columnar query engine over RecordBatches of fixed-width tensors. Every
+entry point runs on CUDA unless the caller passes ``device="cpu"``; the
+CUDA kernels (``csrc/``) build with nvcc at first use. This slice holds
+the data model, expressions over numeric and bool columns, filter and
+take, the compiled filter -> project -> group_by -> sort -> limit
+pipeline, and the fused filter+project flagship.
+"""
+
+from . import dtypes
+from .column import Column, Dictionary
+from .datum import Scalar, scalar
+from .dtypes import (DataType, binary, bool_, float16, float32, float64,
+                     int8, int16, int32, int64, large_binary, large_string,
+                     string, uint8, uint16, uint32, uint64)
+from .device import resolve_device
+from .exec.compiled import CompiledPipeline, PipelineBuilder
+from .expr import Expression, call, field, literal
+from .interop import from_reference_arrays
+from .kernels.fused_ops import filter_project_flagship
+from .ops.selection import filter, take
+from .registry import call_function, list_functions
+from .table import RecordBatch, record_batch
+
+__all__ = ["dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
+           "binary", "bool_", "float16", "float32", "float64", "int8",
+           "int16", "int32", "int64", "large_binary", "large_string",
+           "string", "uint8", "uint16", "uint32", "uint64", "resolve_device",
+           "CompiledPipeline", "PipelineBuilder", "Expression", "call",
+           "field", "literal", "from_reference_arrays",
+           "filter_project_flagship", "filter", "take", "call_function",
+           "list_functions", "RecordBatch", "record_batch"]

@@ -1,0 +1,127 @@
+"""Column: one typed tensor plus an optional validity mask (counterpart of
+arrow1_tpu/column.py).
+
+- ``data``: a 1-D fixed-width tensor. For string/binary columns it holds
+  int32 dictionary codes and the values live host-side in a ``Dictionary``.
+- ``validity``: a bool tensor, or None when every slot is valid.
+- ``data2``: a second limb for wide types (decimals, a later slice).
+
+The JAX package also carries ``bits``, an int64 view of f64 data taken at
+ingest, because its TPU could not bit-cast f64 on the device. Hopper moves
+f64 natively, so the port has no such field.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import dtypes as dt
+
+__all__ = ["Column", "Dictionary"]
+
+
+class Dictionary:
+    """Host-side value pool of a dictionary-encoded column. Equality is
+    identity: a pool is created once, at ingest."""
+
+    __slots__ = ("values", "_rank", "_lock")
+
+    def __init__(self, values):
+        self.values = np.asarray(values)
+        self._rank = None
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return len(self.values)
+
+    def __eq__(self, other):
+        return self is other
+
+    def __hash__(self):
+        return id(self)
+
+    @property
+    def rank(self) -> np.ndarray:
+        """int32 array: rank[code] = position of values[code] in sorted
+        order."""
+        with self._lock:
+            if self._rank is None:
+                order = np.argsort(self.values, kind="stable")
+                rank = np.empty(len(self.values), dtype=np.int32)
+                rank[order] = np.arange(len(self.values), dtype=np.int32)
+                self._rank = rank
+        return self._rank
+
+    @property
+    def rank_is_identity(self) -> bool:
+        """True when the pool is already sorted (codes are ranks)."""
+        r = self.rank
+        return bool(np.array_equal(r, np.arange(len(r), dtype=r.dtype)))
+
+    def __repr__(self):
+        return f"Dictionary({len(self.values)} values)"
+
+
+class Column:
+    """One typed device tensor plus optional validity (and dictionary)."""
+
+    __slots__ = ("data", "validity", "data2", "dtype", "dictionary")
+
+    def __init__(self, data: torch.Tensor, dtype: dt.DataType,
+                 validity: Optional[torch.Tensor] = None,
+                 dictionary: Optional[Dictionary] = None, data2=None):
+        self.data = data
+        self.validity = validity
+        self.data2 = data2
+        self.dtype = dtype
+        self.dictionary = dictionary
+
+    def __len__(self):
+        return int(self.data.shape[0])
+
+    @property
+    def length(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to_numpy(self) -> np.ndarray:
+        """Host copy of the values: decoded strings (None for nulls), NaN
+        for null floats, raw storage otherwise."""
+        data = self.data.cpu().numpy()
+        valid = None if self.validity is None else \
+            self.validity.cpu().numpy()
+        if self.dtype.is_binary:
+            out = self.dictionary.values[data].astype(object)
+            if valid is not None:
+                out[~valid] = None
+            return out
+        if valid is not None and self.dtype.is_floating:
+            data = data.copy()
+            data[~valid] = np.nan
+        return data
+
+    def to_pylist(self) -> list:
+        out = self.to_numpy().tolist()
+        if self.validity is not None:
+            valid = self.validity.cpu().numpy()
+            out = [x if ok else None for x, ok in zip(out, valid)]
+        return out
+
+    def to_arrow(self):
+        """pyarrow Array (host boundary; imports pyarrow lazily)."""
+        from .interop import column_to_arrow
+
+        return column_to_arrow(self)
+
+    def __repr__(self):
+        return (f"Column<{self.dtype!r}>[{self.length}]"
+                + ("" if self.validity is None else " +mask")
+                + ("" if self.dictionary is None
+                   else f" dict={len(self.dictionary)}"))

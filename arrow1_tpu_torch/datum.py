@@ -1,0 +1,75 @@
+"""Scalar and Datum, the universal kernel argument types (counterpart of
+arrow1_tpu/datum.py)."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from . import dtypes as dt
+from .column import Column, Dictionary
+from .table import RecordBatch
+
+__all__ = ["Scalar", "Datum", "scalar", "as_datum"]
+
+
+class Scalar:
+    """A typed single value, possibly null. ``value`` is a Python number,
+    a 0-d tensor, or a dictionary code when ``dictionary`` is set."""
+
+    __slots__ = ("value", "dtype", "is_valid", "dictionary")
+
+    def __init__(self, value, dtype: dt.DataType, is_valid: bool = True,
+                 dictionary: Optional[Dictionary] = None):
+        self.value = value
+        self.dtype = dtype
+        self.is_valid = is_valid
+        self.dictionary = dictionary
+
+    @property
+    def type(self):
+        return self.dtype
+
+    def as_py(self):
+        if not self.is_valid:
+            return None
+        v = self.value
+        if self.dictionary is not None:
+            return self.dictionary.values[int(v)]
+        if isinstance(v, torch.Tensor):
+            v = v.item()
+        return bool(v) if self.dtype.is_boolean else v
+
+    def __repr__(self):
+        shown = "null" if not self.is_valid else self.as_py()
+        return f"Scalar<{self.dtype!r}>({shown})"
+
+
+def scalar(value, type: Optional[dt.DataType] = None) -> Scalar:
+    """Build a Scalar with arrow-style type inference."""
+    if isinstance(value, Scalar):
+        return value
+    if value is None:
+        return Scalar(0, type or dt.int64, is_valid=False)
+    if isinstance(value, (str, bytes)):
+        pool = Dictionary(np.array([value], dtype=object))
+        default = dt.string if isinstance(value, str) else dt.binary
+        return Scalar(0, type or default, dictionary=pool)
+    if isinstance(value, (bool, np.bool_)):
+        return Scalar(bool(value), type or dt.bool_)
+    if isinstance(value, (int, np.integer)):
+        return Scalar(int(value), type or dt.int64)
+    if isinstance(value, (float, np.floating)):
+        return Scalar(float(value), type or dt.float64)
+    raise TypeError(f"cannot build Scalar from {value.__class__.__name__}")
+
+
+Datum = Union[Scalar, Column, RecordBatch]
+
+
+def as_datum(x) -> Datum:
+    if isinstance(x, (Scalar, Column, RecordBatch)):
+        return x
+    return scalar(x)

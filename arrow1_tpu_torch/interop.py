@@ -1,0 +1,155 @@
+"""Host boundary: numpy and pyarrow <-> device columns (counterpart of
+arrow1_tpu/interop.py).
+
+Ingest normalizes every array to the engine's physical form: one
+fixed-width tensor, a bool validity tensor (None when nothing is null),
+and for strings int32 dictionary codes with the values kept on the host.
+pyarrow is imported only inside the functions that take or return pyarrow
+objects.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import dtypes as dt
+from .column import Column, Dictionary
+from .table import RecordBatch
+
+__all__ = ["column_from_numpy", "column_from_arrow", "column_to_arrow",
+           "record_batch_from_arrow", "record_batch_to_arrow",
+           "from_reference_arrays"]
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    # torch wants writable memory; read-only views (pyarrow's) are copied
+    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(
+        device)
+
+
+def _dictionary_encode(values: np.ndarray, valid: np.ndarray):
+    """Codes in first-appearance order (pyarrow.compute.dictionary_encode
+    order); null slots get code 0 and add nothing to the pool."""
+    codes = np.zeros(len(values), dtype=np.int32)
+    present = values[valid]
+    if not len(present):
+        return codes, np.array([], dtype=object)
+    uniq, first, inv = np.unique(present, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    remap = np.empty(len(order), dtype=np.int32)
+    remap[order] = np.arange(len(order), dtype=np.int32)
+    codes[valid] = remap[inv.reshape(-1)]
+    return codes, uniq[order].astype(object)
+
+
+def column_from_numpy(values, validity: Optional[np.ndarray] = None,
+                      device="cpu", dictionary=None) -> Column:
+    """A numpy array (or list, or pyarrow array) -> Column on ``device``.
+
+    Object/str arrays are dictionary-encoded, with None as null. With
+    ``dictionary`` given, ``values`` are already codes into it."""
+    if not isinstance(values, (np.ndarray, list, tuple)):
+        return column_from_arrow(values, device=device)
+    arr = np.asarray(values)
+    valid = None if validity is None else np.asarray(validity, dtype=bool)
+    if dictionary is not None:
+        return Column(_to_device(arr.astype(np.int32), device), dt.string,
+                      validity=None if valid is None
+                      else _to_device(valid, device),
+                      dictionary=Dictionary(dictionary))
+    if arr.dtype.kind in "OUS":
+        isnull = np.array([v is None for v in arr.tolist()], dtype=bool)
+        if isnull.any():
+            valid = ~isnull if valid is None else (valid & ~isnull)
+        codes, pool = _dictionary_encode(
+            arr, np.ones(len(arr), bool) if valid is None else valid)
+        return Column(_to_device(codes, device),
+                      dt.from_numpy_dtype(arr.dtype),
+                      validity=None if valid is None
+                      else _to_device(valid, device),
+                      dictionary=Dictionary(pool))
+    t = dt.from_numpy_dtype(arr.dtype)
+    return Column(_to_device(arr, device), t,
+                  validity=None if valid is None
+                  else _to_device(valid, device))
+
+
+def column_from_arrow(arr, device="cpu") -> Column:
+    """pyarrow Array/ChunkedArray -> Column on ``device``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    t = dt.from_arrow(arr.type)
+    valid = None
+    if arr.null_count:
+        valid = np.asarray(pc.is_valid(arr), dtype=bool)
+    if t.is_binary:
+        enc = pc.dictionary_encode(arr)
+        codes = np.asarray(enc.indices.fill_null(0)).astype(np.int32)
+        pool = enc.dictionary.to_numpy(zero_copy_only=False)
+        return Column(_to_device(codes, device), t,
+                      validity=None if valid is None
+                      else _to_device(valid, device),
+                      dictionary=Dictionary(pool))
+    if arr.null_count:
+        arr = arr.fill_null(False if t.is_boolean else 0)
+    data = np.asarray(arr.to_numpy(zero_copy_only=False)).astype(
+        t.numpy_dtype(), copy=False)
+    return Column(_to_device(data, device), t,
+                  validity=None if valid is None
+                  else _to_device(valid, device))
+
+
+def column_to_arrow(col: Column):
+    import pyarrow as pa
+
+    mask = None
+    if col.validity is not None:
+        mask = ~col.validity.cpu().numpy()
+    if col.dtype.is_binary:
+        vals = col.dictionary.values[col.data.cpu().numpy()]
+        return pa.array(vals.tolist(), type=dt.to_arrow(col.dtype),
+                        mask=mask)
+    return pa.array(col.data.cpu().numpy(), type=dt.to_arrow(col.dtype),
+                    mask=mask)
+
+
+def record_batch_from_arrow(batch, device="cpu") -> RecordBatch:
+    """pyarrow RecordBatch/Table -> RecordBatch on ``device``."""
+    import pyarrow as pa
+
+    if isinstance(batch, pa.Table):
+        batch = batch.combine_chunks()
+    cols = tuple(column_from_arrow(batch.column(i), device=device)
+                 for i in range(batch.num_columns))
+    return RecordBatch(cols, tuple(batch.schema.names))
+
+
+def record_batch_to_arrow(rb: RecordBatch):
+    import pyarrow as pa
+
+    return pa.record_batch([column_to_arrow(c) for c in rb.columns],
+                           names=list(rb.names))
+
+
+def from_reference_arrays(
+        names: Sequence[str],
+        arrays: Sequence[Tuple[np.ndarray, Optional[np.ndarray],
+                               Optional[np.ndarray]]],
+        device) -> RecordBatch:
+    """Build the port's RecordBatch from another engine's batch read out as
+    numpy: one ``(data, validity, dictionary)`` triple per column, where
+    ``validity`` is a bool array or None and ``dictionary`` the value pool
+    of a dictionary-encoded column (``data`` then holds its codes) or None.
+    Null slots keep the data values they had, so both engines see the
+    same state bit for bit."""
+    cols = tuple(column_from_numpy(data, validity=validity, device=device,
+                                   dictionary=dictionary)
+                 for data, validity, dictionary in arrays)
+    return RecordBatch(cols, tuple(names))

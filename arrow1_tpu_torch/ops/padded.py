@@ -1,0 +1,218 @@
+"""Static-capacity building blocks of the compiled pipeline (counterpart
+of the filter and group-by parts of arrow1_tpu/ops/padded.py).
+
+Every function keeps its outputs at a capacity fixed by the plan, with a
+valid-count or valid-mask on the device, so a pipeline runs without host
+syncs between operators. Scans are ``torch.cumsum`` or a flagged scan;
+the JAX package's blocked scans (kernels/blockscan.py) only capped TPU
+compile time and are not carried over.
+
+When the group capacity G exceeds 65536, segment starts and segment-end
+values come out of the compaction kernel (kernels/compaction.py, K2), as
+the JAX package does on the TPU; at smaller G they are binary searches
+and gathers.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.compaction import compact
+from ..kernels.radix import pack_layout, pack_operands, sort_permutation
+
+__all__ = ["filter_padded", "SortedGroups", "group_sort_padded", "gsp_sort",
+           "gsp_flags", "gsp_segments", "gsp_positions_big", "seg_sum_plane",
+           "seg_minmax_plane", "seg_values_at_ends", "seg_diff_lo"]
+
+BIG_G = 65536   # above this group capacity, segments come from K2
+
+
+def filter_padded(selected: torch.Tensor):
+    """mask -> (indices[n], count): the first ``count`` slots hold the
+    selected row positions in order, the rest point at row 0."""
+    n = selected.shape[0]
+    positions = torch.cumsum(selected, 0) - 1
+    scatter_to = torch.where(selected, positions, n)
+    indices = torch.zeros(n + 1, dtype=torch.int64, device=selected.device)
+    indices.scatter_(0, scatter_to, torch.arange(n, device=selected.device))
+    return indices[:n], selected.sum(dtype=torch.int64)
+
+
+class SortedGroups(NamedTuple):
+    """Sorted-space segments with a static group capacity G."""
+
+    live_sorted: torch.Tensor   # bool[n]  rows in sorted order, dead last
+    first: torch.Tensor         # bool[n]  segment-start flags
+    startpos: torch.Tensor      # int64[G] sorted position of group start
+    endpos: torch.Tensor        # int64[G] sorted position of group end
+    group_valid: torch.Tensor   # bool[G]  slot < num_groups
+    num_groups: torch.Tensor    # int64 scalar (live groups only)
+    overflow: torch.Tensor      # bool scalar: num_groups > G
+
+
+def group_sort_padded(key_pairs: Sequence[Tuple[torch.Tensor, int]],
+                      live: Optional[torch.Tensor],
+                      payloads: Sequence[torch.Tensor], G: int):
+    """Scatter-free grouping with static capacity G: one stable sort of
+    the packed key words (a dead-row bit leads, so dead rows sort last),
+    payloads gathered into sorted order, then segment boundaries.
+
+    Returns (SortedGroups, payloads in sorted order, key words in sorted
+    order, placements, words_at_start): placements[i] = (word, shift,
+    bits) locates key_pairs[i] in the words; words_at_start[w][g] is word
+    w at group g's start when it rode the large-G compaction, else None
+    (callers gather)."""
+    sorted_words, sorted_payloads, used, placements = gsp_sort(
+        key_pairs, live, payloads)
+    sg, words_at_start = gsp_segments(sorted_words, used, live is not None,
+                                      G)
+    return sg, sorted_payloads, sorted_words, placements, words_at_start
+
+
+def gsp_sort(key_pairs, live, payloads):
+    """Pack the keys (with a leading dead-row bit when ``live`` is given),
+    sort stably, and carry the payloads. Returns (sorted_words,
+    sorted_payloads, used_bits, placements)."""
+    pairs = list(key_pairs)
+    if live is not None:
+        pairs = [((~live).to(torch.int64), 1)] + pairs
+    placements = pack_layout(pairs)
+    if live is not None:
+        placements = placements[1:]
+    words, used = pack_operands(pairs)
+    perm = sort_permutation(words, used)
+    return ([w[perm] for w in words], [p[perm] for p in payloads], used,
+            placements)
+
+
+def gsp_flags(sorted_words, used, have_live):
+    """Live mask, segment-start flags and live group count of the sorted
+    key words."""
+    n = sorted_words[0].shape[0]
+    dev = sorted_words[0].device
+    if have_live:   # the dead bit is the top used bit of word 0
+        live_sorted = ((sorted_words[0] >> (used[0] - 1)) & 1) == 0
+    else:
+        live_sorted = torch.ones(n, dtype=torch.bool, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    if n > 1:
+        same = torch.ones(n - 1, dtype=torch.bool, device=dev)
+        for w in sorted_words:
+            same = same & (w[1:] == w[:-1])
+        first[1:] = ~same
+    num_groups = (first & live_sorted).sum(dtype=torch.int64)
+    return live_sorted, first, num_groups
+
+
+def gsp_segments(sorted_words, used, have_live, G):
+    """Flags, then slot positions: binary search at G <= 65536, the
+    compaction kernel above it. Returns (SortedGroups, words_at_start)."""
+    n = sorted_words[0].shape[0]
+    dev = sorted_words[0].device
+    live_sorted, first, num_groups = gsp_flags(sorted_words, used, have_live)
+    overflow = num_groups > G
+    slots = torch.arange(G, device=dev)
+    group_valid = slots < num_groups
+    if G <= BIG_G:
+        gid_sorted = torch.cumsum(first, 0) - 1
+        right = torch.searchsorted(gid_sorted, slots, right=True)
+        left = torch.cat([right.new_zeros(1), right[:-1]])
+        endpos = torch.where(group_valid, (right - 1).clamp(min=0), 0)
+        startpos = torch.where(group_valid, left, 0)
+        return (SortedGroups(live_sorted, first, startpos, endpos,
+                             group_valid, num_groups, overflow), None)
+    # segment starts are the compaction of iota by the first-flags; the
+    # sorted key words ride the same launch, so decoding the keys at the
+    # group starts needs no G-sized gathers
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    outs, total_segs = compact(first, (iota, *sorted_words))
+    startpos, endpos, group_valid, words_at_start = gsp_positions_big(
+        outs[0], total_segs, num_groups, G, n, list(outs[1:]))
+    return (SortedGroups(live_sorted, first, startpos, endpos, group_valid,
+                         num_groups, overflow), words_at_start)
+
+
+def gsp_positions_big(pos_pad, total_segs, num_groups, G, n,
+                      words_comp=None):
+    """Slot positions from the compacted segment starts: a group ends one
+    row before the next segment starts (a shifted slice, not a gather)."""
+    dev = pos_pad.device
+    slots = torch.arange(G, device=dev)
+    group_valid = slots < num_groups
+    pos_pad = pos_pad.to(torch.int64)
+    startpos = torch.where(group_valid, pos_pad[:G], 0)
+    words_at_start = None
+    if words_comp is not None:
+        words_at_start = [torch.where(group_valid, w[:G], 0)
+                          for w in words_comp]
+    nxt = torch.cat([pos_pad[1:G + 1],
+                     pos_pad.new_zeros(max(G + 1 - pos_pad.shape[0], 0))])
+    nxt = torch.where(slots + 1 < total_segs, nxt, n)
+    endpos = torch.where(group_valid, (nxt - 1).clamp(min=0), 0)
+    return startpos, endpos, group_valid, words_at_start
+
+
+def seg_sum_plane(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
+                  sg: SortedGroups, acc_dtype) -> torch.Tensor:
+    """Full-length inclusive cumsum plane of a segment sum; read it at the
+    segment ends (seg_values_at_ends) and difference (seg_diff_lo)."""
+    m = sg.live_sorted if mask_s is None else (mask_s & sg.live_sorted)
+    return torch.cumsum(torch.where(m, xs.to(acc_dtype), 0), 0,
+                        dtype=acc_dtype)
+
+
+def seg_diff_lo(hi: torch.Tensor, sg: SortedGroups) -> torch.Tensor:
+    """Cumsum values at segment ends -> per-slot sums: segments tile the
+    sorted rows, so the low side is the high side shifted by one slot."""
+    lo = torch.cat([hi.new_zeros(1), hi[:-1]])
+    return torch.where(sg.group_valid, hi - lo, 0)
+
+
+def seg_values_at_ends(sg: SortedGroups, planes: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """Each full-length plane's values at the segment ends, slot-aligned
+    to [G]; slots past num_groups hold garbage (callers mask with
+    group_valid). At large G the integer and bool planes ride one
+    last-flag compaction: the j-th segment's end value is the j-th kept
+    element. Float planes, and every plane at small G, are gathered."""
+    G = sg.startpos.shape[0]
+    out: List[Optional[torch.Tensor]] = [None] * len(planes)
+    compacted = [i for i, p in enumerate(planes)
+                 if G > BIG_G and not p.is_floating_point()]
+    for i, p in enumerate(planes):
+        if i not in compacted:
+            out[i] = p[sg.endpos]
+    if compacted:
+        last = torch.cat([sg.first[1:], sg.first.new_ones(1)])
+        outs, _ = compact(last, [planes[i] for i in compacted])
+        for j, i in enumerate(compacted):
+            out[i] = outs[j][:G]
+    return out
+
+
+def _segmented_scan(vals: torch.Tensor, first: torch.Tensor, op):
+    """Inclusive scan of ``op`` that restarts at every first-flag
+    (Hillis-Steele doubling over the associative flagged operator)."""
+    v, f = vals, first
+    d = 1
+    while d < v.shape[0]:
+        nv = torch.where(f[d:], v[d:], op(v[:-d], v[d:]))
+        v = torch.cat([v[:d], nv])
+        f = torch.cat([f[:d], f[:-d] | f[d:]])
+        d <<= 1
+    return v
+
+
+def seg_minmax_plane(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
+                     sg: SortedGroups, is_min: bool, init) -> torch.Tensor:
+    """Full-length flagged-scan plane of a segment min/max; ``init`` is
+    the identity that masked rows contribute."""
+    m = sg.live_sorted if mask_s is None else (mask_s & sg.live_sorted)
+    vals = torch.where(m, xs, init)
+    if vals.dtype == torch.bool:
+        op = torch.logical_and if is_min else torch.logical_or
+    else:
+        op = torch.minimum if is_min else torch.maximum
+    return _segmented_scan(vals, sg.first, op)

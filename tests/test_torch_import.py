@@ -1,0 +1,105 @@
+"""The port stands alone: it imports without JAX, never imports the JAX
+package or pyarrow at module level, runs on CUDA unless asked for the
+CPU, and builds its kernels only when they are first called."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import arrow1_tpu_torch as pt
+from arrow1_tpu_torch import dtypes as dt
+from arrow1_tpu_torch.errors import NotImplementedError_
+from arrow1_tpu_torch.kernels import build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "arrow1_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def test_imports_with_jax_and_pyarrow_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['pyarrow'] = None\n"
+            "import arrow1_tpu_torch\n"
+            "import arrow1_tpu_torch.exec.compiled\n"
+            "import arrow1_tpu_torch.kernels.compaction\n"
+            "import arrow1_tpu_torch.kernels.fused_ops\n"
+            "import arrow1_tpu_torch.ops.padded\n"
+            "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
+            " for m in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imports(path):
+    """(module name, at module level?) of every import in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or "", id(node) in top
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_reference_or_module_level_pyarrow(path):
+    for name, top in _imports(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "arrow1_tpu"), (path, name)
+        assert not (top and root == "pyarrow"), (path, name)
+        assert not (top and root == "triton"), (path, name)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = {"k": np.arange(4, dtype=np.int64)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.record_batch(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.PipelineBuilder().sort([("k", "ascending")]).compile()(data)
+    x = np.zeros(4, np.int64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.filter_project_flagship(x, x, np.zeros(4), 0.0, 0)
+    assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
+
+
+def test_later_slice_types_raise():
+    for kind in ("timestamp", "decimal128", "list"):
+        with pytest.raises(NotImplementedError_):
+            dt.DataType(kind)
+    assert dt.from_numpy_dtype(np.float32) == dt.float32
+    assert dt.int64.physical_dtype() == torch.int64
+    assert dt.string.physical_dtype() == torch.int32
+
+
+def test_build_is_keyed_on_sources_and_needs_nvcc(monkeypatch, tmp_path):
+    for src in build.SOURCES:
+        path = build.library_path(src)
+        assert path.parent == build.BUILD_DIR
+        assert path == build.library_path(src)   # deterministic
+    assert build.library_path(build.SOURCES[0]) != \
+        build.library_path(build.SOURCES[1])
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "library_path",
+                        lambda s: tmp_path / "out" / f"{s}.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+
+
+def test_strings_are_dictionary_encoded_at_ingest():
+    col = pt.record_batch({"s": np.array(["b", "a", None, "b"],
+                                         dtype=object)}, device="cpu")["s"]
+    assert col.dtype == dt.string and col.data.dtype == torch.int32
+    assert list(col.dictionary.values) == ["b", "a"]
+    assert col.to_pylist() == ["b", "a", None, "b"]
