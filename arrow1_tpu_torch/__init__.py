@@ -5,7 +5,9 @@ entry point runs on CUDA unless the caller passes ``device="cpu"``; the
 CUDA kernels (``csrc/``) build with nvcc at first use. This slice holds
 the data model, expressions over numeric and bool columns, filter and
 take, the compiled filter -> project -> group_by -> sort -> limit
-pipeline, and the fused filter+project flagship.
+pipeline, the fused filter+project flagship, the eager ``group_by`` (K3
+for dense integer keys), the hash-aggregate and scalar-aggregate registry
+functions, and a pyarrow.compute-shaped facade (``compute``).
 """
 
 from . import dtypes
@@ -19,6 +21,7 @@ from .exec.compiled import CompiledPipeline, PipelineBuilder
 from .expr import Expression, call, field, literal
 from .interop import from_reference_arrays
 from .kernels.fused_ops import filter_project_flagship
+from .ops.groupby import group_by
 from .ops.selection import filter, take
 from .registry import call_function, list_functions
 from .table import RecordBatch, record_batch
@@ -29,5 +32,6 @@ __all__ = ["dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
            "string", "uint8", "uint16", "uint32", "uint64", "resolve_device",
            "CompiledPipeline", "PipelineBuilder", "Expression", "call",
            "field", "literal", "from_reference_arrays",
-           "filter_project_flagship", "filter", "take", "call_function",
+           "filter_project_flagship", "group_by", "filter", "take",
+           "call_function",
            "list_functions", "RecordBatch", "record_batch"]

@@ -91,13 +91,20 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    def mask(self) -> torch.Tensor:
+        """The validity as a bool tensor (all True when there is none)."""
+        if self.validity is None:
+            return torch.ones(self.length, dtype=torch.bool,
+                              device=self.device)
+        return self.validity
+
     def to_numpy(self) -> np.ndarray:
         """Host copy of the values: decoded strings (None for nulls), NaN
         for null floats, raw storage otherwise."""
         data = self.data.cpu().numpy()
         valid = None if self.validity is None else \
             self.validity.cpu().numpy()
-        if self.dtype.is_binary:
+        if self.dtype.is_binary or self.dtype.is_dictionary:
             out = self.dictionary.values[data].astype(object)
             if valid is not None:
                 out[~valid] = None

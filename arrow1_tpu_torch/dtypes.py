@@ -11,6 +11,7 @@ nested types come with later slices of the port and raise
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ from .errors import NotImplementedError_
 
 __all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
            "uint16", "uint32", "uint64", "float16", "float32", "float64",
-           "string", "large_string", "binary", "large_binary",
+           "string", "large_string", "binary", "large_binary", "dictionary",
            "from_numpy_dtype", "from_arrow", "to_arrow"]
 
 _PHYS = {
@@ -43,12 +44,17 @@ _LATER = "is not ported yet: temporal, decimal and nested types come with " \
 
 @dataclasses.dataclass(frozen=True)
 class DataType:
-    """A logical column type, identified by its ``kind``."""
+    """A logical column type, identified by its ``kind``; a
+    ``dictionary`` type (the result of dictionary_encode) also names its
+    index and value types."""
 
     kind: str
+    index_type: Optional["DataType"] = None
+    value_type: Optional["DataType"] = None
 
     def __post_init__(self):
-        if self.kind not in _PHYS and self.kind not in _DICT_KINDS:
+        if self.kind not in _PHYS and self.kind not in _DICT_KINDS and \
+                self.kind != "dictionary":
             raise NotImplementedError_(f"type {self.kind!r} {_LATER}")
 
     @property
@@ -80,16 +86,27 @@ class DataType:
         """Dictionary-encoded string or binary."""
         return self.kind in _DICT_KINDS
 
+    @property
+    def is_dictionary(self) -> bool:
+        """An explicit dictionary type: codes into a host value pool."""
+        return self.kind == "dictionary"
+
     def physical_dtype(self) -> torch.dtype:
         """The torch dtype of the column's data tensor (int32 codes for
-        dictionary-encoded strings)."""
+        dictionary-encoded strings, the index type's for dictionaries)."""
+        if self.is_dictionary:
+            return self.index_type.physical_dtype()
         return _PHYS.get(self.kind, torch.int32)
 
     def numpy_dtype(self) -> np.dtype:
         """The numpy dtype of the host copy of ``physical_dtype()``."""
+        if self.is_dictionary:
+            return self.index_type.numpy_dtype()
         return np.dtype(self.kind if self.kind in _PHYS else np.int32)
 
     def __repr__(self) -> str:
+        if self.is_dictionary:
+            return f"dictionary<{self.value_type!r}, {self.index_type!r}>"
         return self.kind
 
 
@@ -109,6 +126,11 @@ string = DataType("string")
 large_string = DataType("large_string")
 binary = DataType("binary")
 large_binary = DataType("large_binary")
+
+
+def dictionary(index_type: DataType, value_type: DataType) -> DataType:
+    return DataType("dictionary", index_type=index_type,
+                    value_type=value_type)
 
 
 def from_numpy_dtype(np_dtype) -> DataType:
@@ -140,4 +162,6 @@ def from_arrow(pa_type) -> DataType:
 def to_arrow(t: DataType):
     import pyarrow as pa
 
+    if t.is_dictionary:
+        return pa.dictionary(to_arrow(t.index_type), to_arrow(t.value_type))
     return getattr(pa, "bool_" if t.kind == "bool" else t.kind)()

@@ -24,6 +24,7 @@ from ..expr import Expression
 from ..kernels.radix import (decode_packed_key, field_of, minimal_sort_keys,
                              sort_key_decodable, sort_rows)
 from ..ops import selection
+from ..ops.aggregate import _as_type, _sum_output_type
 from ..ops.padded import (group_sort_padded, seg_diff_lo, seg_minmax_plane,
                           seg_sum_plane, seg_values_at_ends)
 from ..table import RecordBatch, record_batch
@@ -51,27 +52,6 @@ def _masked_batch(batch: RecordBatch, live) -> RecordBatch:
                dictionary=c.dictionary, data2=c.data2)
         for c in batch.columns)
     return RecordBatch(cols, batch.names)
-
-
-def _sum_output_type(t: dt.DataType) -> dt.DataType:
-    """Sums accumulate in the 64-bit type of the input's class; floats in
-    float64 (aggregate_basic.cc SumImpl)."""
-    if t.is_signed_integer:
-        return dt.int64
-    if t.is_unsigned_integer or t.is_boolean:
-        return dt.uint64
-    if t.is_floating:
-        return dt.float64
-    raise Invalid(f"sum: unsupported type {t}")
-
-
-def _as_type(acc: torch.Tensor, t: dt.DataType) -> torch.Tensor:
-    """Cast to the physical dtype; int64 sums of unsigned inputs keep
-    their bits (mod 2^64), as the JAX package's uint64 accumulator."""
-    phys = t.physical_dtype()
-    if phys == torch.uint64 and acc.dtype == torch.int64:
-        return acc.view(torch.uint64)
-    return acc.to(phys)
 
 
 def _minmax_init(t: dt.DataType, is_min: bool):

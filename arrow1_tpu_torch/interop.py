@@ -116,6 +116,13 @@ def column_to_arrow(col: Column):
         vals = col.dictionary.values[col.data.cpu().numpy()]
         return pa.array(vals.tolist(), type=dt.to_arrow(col.dtype),
                         mask=mask)
+    if col.dtype.is_dictionary:
+        t = col.dtype
+        return pa.DictionaryArray.from_arrays(
+            pa.array(col.data.cpu().numpy(), type=dt.to_arrow(t.index_type),
+                     mask=mask),
+            pa.array(col.dictionary.values.tolist(),
+                     type=dt.to_arrow(t.value_type)))
     return pa.array(col.data.cpu().numpy(), type=dt.to_arrow(col.dtype),
                     mask=mask)
 

@@ -1,3 +1,4 @@
 """Compute kernels; importing this package registers them."""
 
-from . import arithmetic, boolean, compare, selection  # noqa: F401
+from . import (aggregate, arithmetic, boolean, compare, groupby,  # noqa: F401
+               hash, selection)

@@ -2,13 +2,16 @@
 
     python -m arrow1_tpu_torch.profile_main_path [--rows N] [--seed S]
 
-For the fused flagship (selectivity 0.5) and the entry pipeline
+For the fused flagship (selectivity 0.5), the entry pipeline
 (filter -> project -> group_by -> sort, materialized) at 1K and ~1M
-groups, it prints the host wall time of one run (median of 5, each
-synchronised), the device time that torch.profiler's CUDA trace records
-over 3 runs, the resulting idle share of the card, and the kernels that
-take the most device time (kernel records only, so no time is counted
-twice). Data is bench.py's recipe from ``--seed``.
+groups, and the eager group_by at BASELINE config 2 (sum/mean/count/sum
+on the dense-key path at G = 1000 and 100000, sum/count/min/max on the
+sorted path at G = 2^20), it prints the host wall time of one run (median
+of 5, each synchronised), the device time that torch.profiler's CUDA
+trace records over 3 runs, the resulting idle share of the card, and the
+kernels that take the most device time (kernel records only, so no time
+is counted twice). Data is bench.py's recipe from ``--seed``; the
+group_by's ``w`` column is int32 with 10% nulls.
 """
 
 from __future__ import annotations
@@ -99,6 +102,22 @@ def main() -> None:
                 .sort([("proj_sum", "descending")])
                 .compile())
         profile(f"pipeline, {label}", lambda: pipe(batch))
+    dense = [("v", "sum"), ("v", "mean"), ("w", "count"), ("w", "sum")]
+    for label, ngroups, aggs in (
+            ("dense-key path, G=1000", 1000, dense),
+            ("dense-key path, G=100000", 100_000, dense),
+            ("sorted path, G=2^20", 1 << 20,
+             [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")])):
+        batch = pt.record_batch({
+            "k": rng.integers(0, ngroups, n).astype(np.int64),
+            "v": rng.integers(-(1 << 30), 1 << 30, n).astype(np.int64)},
+            device=dev)
+        w = pt.Column(torch.from_numpy(rng.integers(
+            -(1 << 20), 1 << 20, n).astype(np.int32)).to(dev), pt.int32,
+            validity=torch.from_numpy(rng.random(n) >= 0.1).to(dev))
+        batch = pt.RecordBatch(batch.columns + (w,), batch.names + ("w",))
+        profile(f"eager group_by, {label}",
+                lambda: pt.group_by(batch, ["k"], aggs))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,22 @@ source, all at once), then:
    count is set to 0 just before and read just after; each kernel must
    have launched. The pipeline results must equal an independent numpy
    oracle. The K2 calls the pipeline made are captured in a separate,
-   uncounted run and replayed against the plain version and timed.
+   uncounted run and replayed against the plain version and timed;
+5. holds the group accumulators against their plain versions at 10M
+   rows: K3 (segment_sums) bit for bit at G = 1024 and 131072 (the
+   shared-memory and the global-atomic forms) over a live-masked int64
+   column with 10% nulls, an unmasked int64 column and 5% dead rows; segsum
+   v1 (segment_sum_count) at G = 4096 with exact counts and sums within
+   1e-5 of each group's sum of |v| of a float64 index_add_ (the plain
+   version is held to the same bound). Kernel, plain version and library
+   call (torch.bincount and one index_add_ per output) are timed;
+6. drives the eager group_by at BASELINE config 2, 10M rows, seed 0 (k in
+   [0, G), v int64, w int32 with 10% nulls): sum/mean/count/sum at
+   G = 1000 and 100000 on the dense-key path (one K3 launch each) and
+   sum/count/min/max at G = 2^20 on the sorted path (no K3). Every launch
+   count is set to 0 just before and read just after: K3 must have
+   launched exactly twice. Each result must equal a numpy oracle in the
+   path's row order (key order, first-appearance order).
 
 The line before the last is a JSON object with one entry per kernel
 (time, bound, plain and library times, launches, error); the last line is
@@ -161,10 +176,12 @@ def phase_compaction(pt_kernels, dev, peak):
     e, k = _check_compact(compact, compact_plain, mask, cols)
     err = max(err, e)
     ms = _time_ms(lambda: compact(mask, cols))
+    plain_ms = _time_ms(lambda: compact_plain(mask, cols))
+    lib_ms = _time_ms(lambda: [c[mask] for c in cols])
     bound = _compact_bytes(N_BIG, cols, k) / peak * 1e3
     print(f"K2 compact 10M x (i64,i64,f64) sel 0.5: kernel {ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound / ms:.1%} of the HBM bound)",
-          flush=True)
+          f"plain {plain_ms:.4f} ms, mask indexing {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound / ms:.1%} of the HBM bound)", flush=True)
     return err
 
 
@@ -250,6 +267,228 @@ def _check_pipeline(out, want, label):
         raise AssertionError(f"{label}: null sums")
 
 
+def _int_err(a, b) -> float:
+    """Max |a - b| of two int64 tensors (wrapping difference)."""
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def _k3_inputs(n, G, dev, seed):
+    """gid with 5% dead rows (gid == G), a live-masked int64 column with
+    10% nulls and an unmasked int64 column."""
+    rng = np.random.default_rng(seed)
+    gid = np.where(rng.random(n) < 0.05, G,
+                   rng.integers(0, G, n)).astype(np.int32)
+    a = rng.integers(-(1 << 62), 1 << 62, n).astype(np.int64)
+    live = rng.random(n) >= 0.1
+    b = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    t = [torch.from_numpy(x).to(dev) for x in (gid, a, live, b)]
+    return t[0], [(t[1], t[2]), (t[3], None)]
+
+
+def _k3_library(gid, cols, G):
+    """One PyTorch call per output: bincount for the occupancy, one
+    index_add_ per live count and per sum (inputs prepared outside)."""
+    idx = torch.where(gid < G, gid, G).long()
+    prepared = []
+    for vals, live in cols:
+        if live is not None:
+            prepared.append(live.long())
+        prepared.append(vals if live is None else torch.where(live, vals, 0))
+
+    def run():
+        out = [torch.bincount(idx, minlength=G + 1)]
+        for src in prepared:
+            out.append(torch.zeros(G + 1, dtype=torch.int64,
+                                   device=gid.device).index_add_(0, idx, src))
+        return out
+
+    return run
+
+
+def phase_segment_sums(segsum2, dev, peak):
+    """K3 against its plain version at 10M rows; returns (error, row of
+    the G = 1024 shape, the main path's)."""
+    err, row = 0.0, None
+    for G in (1024, 131072):
+        gid, cols = _k3_inputs(N_BIG, G, dev, seed=G)
+        occ, res = segsum2.segment_sums(gid, cols, G)
+        occ_p, res_p = segsum2.segment_sums_plain(gid, cols, G)
+        if not torch.equal(occ, occ_p):
+            raise AssertionError(f"K3 occupancy differs from plain, G={G}")
+        err = max(err, _int_err(occ, occ_p))
+        for (c, s), (cp, sp) in zip(res, res_p):
+            if not torch.equal(c, cp) or (s is None) != (sp is None) or \
+                    (s is not None and not torch.equal(s, sp)):
+                raise AssertionError(f"K3 differs from plain, G={G}")
+            err = max(err, _int_err(c, cp),
+                      0.0 if s is None else _int_err(s, sp))
+        ms = _time_ms(lambda: segsum2.segment_sums(gid, cols, G))
+        plain_ms = _time_ms(lambda: segsum2.segment_sums_plain(gid, cols, G))
+        lib_ms = _time_ms(_k3_library(gid, cols, G))
+        slots = 1 + sum((m is not None) + (v is not None) for v, m in cols)
+        nbytes = N_BIG * (4 + sum(8 * (v is not None) + (m is not None)
+                                  for v, m in cols)) + G * 8 * slots
+        bound = nbytes / peak * 1e3
+        print(f"K3 segment_sums 10M rows, G={G}, {slots} slots: bit-equal "
+              f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bincount+index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({bound / ms:.1%} of the HBM bound)", flush=True)
+        if G == 1024:
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound)
+    return err, row
+
+
+def phase_segment_sum_count(segsum, dev, peak):
+    """segsum v1 against its plain version at 10M rows, G = 4096."""
+    G = 4096
+    rng = np.random.default_rng(1)
+    gid = torch.from_numpy(np.where(rng.random(N_BIG) < 0.05, G,
+                                    rng.integers(0, G, N_BIG)).astype(
+        np.int32)).to(dev)
+    val = torch.from_numpy(rng.standard_normal(N_BIG).astype(
+        np.float32)).to(dev)
+    live = torch.from_numpy(rng.random(N_BIG) >= 0.1).to(dev)
+    s, c = segsum.segment_sum_count(gid, val, live, G)
+    sp, cp = segsum.segment_sum_count_plain(gid, val, live, G)
+    keep = live & (gid < G)
+    idx = torch.where(keep, gid, G).long()
+    ref = torch.zeros(G + 1, dtype=torch.float64, device=dev).index_add_(
+        0, idx, torch.where(keep, val, 0.0).double())[:G]
+    abs_sum = torch.zeros(G + 1, dtype=torch.float64, device=dev).index_add_(
+        0, idx, torch.where(keep, val.abs(), 0.0).double())[:G]
+    if not torch.equal(c, cp):
+        raise AssertionError("v1 counts differ from plain")
+    for label, got in (("kernel", s), ("plain", sp)):
+        if not bool(((got.double() - ref).abs() <= 1e-5 * abs_sum).all()):
+            raise AssertionError(f"v1 {label} sums outside 1e-5 * sum|v| "
+                                 "of the float64 reference")
+    err = _max_abs_err(s, sp)
+    ms = _time_ms(lambda: segsum.segment_sum_count(gid, val, live, G))
+    plain_ms = _time_ms(lambda: segsum.segment_sum_count_plain(gid, val,
+                                                               live, G))
+    masked = torch.where(keep, val, 0.0)
+
+    def library():
+        return (torch.zeros(G + 1, dtype=torch.float32,
+                            device=dev).index_add_(0, idx, masked),
+                torch.bincount(idx, minlength=G + 1))
+
+    lib_ms = _time_ms(library)
+    nbytes = N_BIG * (4 + 4 + 1) + G * 4 * 2
+    bound = nbytes / peak * 1e3
+    print(f"v1 segment_sum_count 10M rows, G={G}: counts exact, sums "
+          f"within 1e-5 * sum|v| (max |kernel - plain| {err:.3g}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_+bincount "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of the "
+          "HBM bound)", flush=True)
+    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound)
+
+
+DENSE_AGGS = [("v", "sum"), ("v", "mean"), ("w", "count"), ("w", "sum")]
+SORTED_AGGS = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max")]
+
+
+def _group_by_data(G):
+    """BASELINE config 2 at 10M rows, seed 0: k in [0, G), v int64, w
+    int32 with 10% nulls."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(0, G, N_BIG).astype(np.int64)
+    v = rng.integers(-(1 << 30), 1 << 30, N_BIG).astype(np.int64)
+    w = rng.integers(-(1 << 20), 1 << 20, N_BIG).astype(np.int32)
+    w_valid = rng.random(N_BIG) >= 0.1
+    return k, v, w, w_valid
+
+
+def _group_by_oracle(k, v, w, w_valid, G, dense):
+    """Independent numpy answer, groups in the path's order: key order on
+    the dense path, first appearance on the sorted one. Sums wrap as
+    uint64 and are read back as int64."""
+    uniq, first, inv = np.unique(k, return_index=True, return_inverse=True)
+    order = np.arange(len(uniq)) if dense else np.argsort(first)
+    out = {"k": uniq[order]}
+    ng = len(uniq)
+
+    def wrapped_sum(idx, x):
+        acc = np.zeros(ng, np.uint64)
+        np.add.at(acc, idx, x.astype(np.int64).view(np.uint64))
+        return acc.view(np.int64)
+
+    v_count = np.bincount(inv, minlength=ng)
+    v_sum = wrapped_sum(inv, v)
+    if dense:
+        out["v_sum"] = v_sum[order]
+        out["v_mean"] = (v_sum.astype(np.float64) / v_count)[order]
+        w_count = np.bincount(inv[w_valid], minlength=ng)[order]
+        out["w_count"] = w_count
+        # a group whose w are all null sums to null
+        out["w_sum"] = (wrapped_sum(inv[w_valid], w[w_valid])[order],
+                        w_count > 0)
+    else:
+        v_min = np.full(ng, np.iinfo(np.int64).max)
+        v_max = np.full(ng, np.iinfo(np.int64).min)
+        np.minimum.at(v_min, inv, v)
+        np.maximum.at(v_max, inv, v)
+        out.update(v_sum=v_sum[order], v_count=v_count[order],
+                   v_min=v_min[order], v_max=v_max[order])
+    return out
+
+
+def _check_group_by(out, want, label):
+    if out.num_rows != len(want["k"]):
+        raise AssertionError(f"group_by {label}: {out.num_rows} groups, "
+                             f"oracle {len(want['k'])}")
+    for name, ref in want.items():
+        ref, valid = ref if isinstance(ref, tuple) else \
+            (ref, np.ones(len(ref), bool))
+        col = out[name]
+        got_valid = np.ones(len(ref), bool) if col.validity is None else \
+            col.validity.cpu().numpy()
+        got = col.data.cpu().numpy()
+        if not np.array_equal(got_valid, valid) or \
+                not np.array_equal(got[valid], ref[valid]):
+            raise AssertionError(f"group_by {label}: column {name} differs "
+                                 "from the numpy oracle")
+
+
+def phase_group_by(pt, dev, counted):
+    """The eager group_by at BASELINE config 2; returns the launch counts
+    of the counted run."""
+    configs = []
+    for label, G, aggs, dense in (("G=1000", 1000, DENSE_AGGS, True),
+                                  ("G=100000", 100_000, DENSE_AGGS, True),
+                                  ("G=2^20", 1 << 20, SORTED_AGGS, False)):
+        k, v, w, w_valid = _group_by_data(G)
+        batch = pt.record_batch({"k": k, "v": v}, device=dev)
+        wcol = pt.Column(torch.from_numpy(w).to(dev), pt.int32,
+                         validity=torch.from_numpy(w_valid).to(dev))
+        batch = pt.RecordBatch(batch.columns + (wcol,), batch.names + ("w",))
+        configs.append((label, batch, aggs,
+                        _group_by_oracle(k, v, w, w_valid, G, dense)))
+    for label, batch, aggs, want in configs:   # uncounted warm-up run
+        _check_group_by(pt.group_by(batch, ["k"], aggs), want, label)
+    torch.cuda.synchronize()
+    for kern in counted:
+        kern.launches = 0
+    for label, batch, aggs, want in configs:
+        _check_group_by(pt.group_by(batch, ["k"], aggs), want, label)
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in counted}
+    for label, batch, aggs, want in configs:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt.group_by(batch, ["k"], aggs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"group_by 10M rows, {label} {[f for _, f in aggs]}: matches "
+              f"the numpy oracle; wall {statistics.median(walls) * 1e3:.3f} "
+              "ms (median of 3)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -259,7 +498,8 @@ def main() -> int:
     import arrow1_tpu_torch.ops.padded as padded
     import arrow1_tpu_torch.ops.selection as selection
     from arrow1_tpu_torch import kernels as pt_kernels
-    from arrow1_tpu_torch.kernels import build, compaction, fused_ops
+    from arrow1_tpu_torch.kernels import (build, compaction, fused_ops,
+                                         segsum, segsum2)
 
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
@@ -366,6 +606,19 @@ def main() -> int:
         raise AssertionError("the pipeline made no K2 call")
     k2_row.pop("_size")
 
+    # ---- phases 5 and 6: group accumulators and the eager group_by ----
+    k3_err, k3_row = phase_segment_sums(segsum2, dev, peak)
+    v1_err, v1_row = phase_segment_sum_count(segsum, dev, peak)
+    gb_launches = phase_group_by(pt, dev, (
+        segsum2.segment_sums, segsum.segment_sum_count, compaction.compact,
+        fused_ops.filter_project_flagship))
+    print(f"group_by main path launches: {gb_launches}", flush=True)
+    if gb_launches["segment_sums"] != 2:
+        raise AssertionError(f"K3 launched {gb_launches['segment_sums']} "
+                             "times in the group_by run, not 2")
+    for kname, count in gb_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+
     result = {"kernels": [
         dict(name="compact", route="cuda",
              source="arrow1_tpu_torch/csrc/compaction.cu",
@@ -378,6 +631,16 @@ def main() -> int:
              launches=launches["filter_project_flagship"],
              max_abs_err=k1_err, bound_by="bytes", library_ms=None,
              **k1_rows[0.5]),
+        dict(name="segment_sums", route="cuda",
+             source="arrow1_tpu_torch/csrc/segment_sums.cu",
+             replaces="arrow1_tpu/kernels/segsum2.py:195",
+             launches=launches["segment_sums"], max_abs_err=k3_err,
+             bound_by="bytes", **k3_row),
+        dict(name="segment_sum_count", route="cuda",
+             source="arrow1_tpu_torch/csrc/segment_sums.cu",
+             replaces="arrow1_tpu/kernels/segsum.py:69",
+             launches=launches["segment_sum_count"], max_abs_err=v1_err,
+             bound_by="bytes", **v1_row),
     ]}
     print(card)
     print(json.dumps(result))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-compiled pipeline on the card against the same pipeline on the CPU.
+compiled pipeline and the eager group_by on the card against the same
+calls on the CPU.
 
 These need an NVIDIA GPU and skip elsewhere. The file imports neither JAX
 nor the JAX package, so it also runs on a machine that has only torch:
@@ -15,6 +16,10 @@ import arrow1_tpu_torch as pt
 from arrow1_tpu_torch.kernels.compaction import compact, compact_plain
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
+from arrow1_tpu_torch.kernels.segsum import (segment_sum_count,
+                                             segment_sum_count_plain)
+from arrow1_tpu_torch.kernels.segsum2 import segment_sums, \
+    segment_sums_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -94,4 +99,88 @@ def test_pipeline_on_card_matches_cpu(cuda, ngroups, max_groups):
     got = pipe(pt.record_batch(data, device=cuda))
     assert compact.launches > before
     want = pipe(pt.record_batch(data, device="cpu"))
+    assert got.to_pydict() == want.to_pydict()
+
+
+def _segsum_cols(rng, n, ncols, dev):
+    """Columns of every kind: masked sums, unmasked sums, masked counts
+    and unmasked counts, round robin."""
+    cols = []
+    for i in range(ncols):
+        vals = torch.from_numpy(rng.integers(
+            np.iinfo(np.int64).min, np.iinfo(np.int64).max, n,
+            dtype=np.int64)).to(dev) if i % 4 < 2 else None
+        live = torch.from_numpy(rng.random(n) < 0.9).to(dev) \
+            if i % 2 == 0 else None
+        cols.append((vals, live))
+    return cols
+
+
+# G: one group, shared memory (1000, 4096), global atomics (20000 with many
+# slots, 131072); 40 columns take two launches of the kernel's 32
+@pytest.mark.parametrize("G,ncols", [(1, 3), (1000, 4), (4096, 2),
+                                     (20000, 4), (131072, 4), (1000, 40)])
+@pytest.mark.parametrize("n", [1, 100_003])
+def test_segment_sums_kernel_matches_plain(cuda, G, ncols, n):
+    rng = np.random.default_rng(G + n)
+    gid = torch.from_numpy(rng.integers(-1, G + 2, n).astype(np.int32)).to(
+        cuda)   # ids outside [0, G) count nowhere
+    cols = _segsum_cols(rng, n, ncols, cuda)
+    before = segment_sums.launches
+    occ, res = segment_sums(gid, cols, G)
+    assert segment_sums.launches == before + 1
+    occ_p, res_p = segment_sums_plain(gid, cols, G)
+    assert torch.equal(occ, occ_p)
+    for (c, s), (cp, sp) in zip(res, res_p):
+        assert torch.equal(c, cp)
+        assert (s is None) == (sp is None)
+        if s is not None:
+            assert torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("G", [1, 256, 4096, 40_000])
+def test_segment_sum_count_kernel_matches_plain(cuda, G):
+    rng = np.random.default_rng(G)
+    n = 200_003
+    gid = torch.from_numpy(rng.integers(0, G + 1, n).astype(np.int32)).to(
+        cuda)
+    val = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda)
+    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    before = segment_sum_count.launches
+    s, c = segment_sum_count(gid, val, live, G)
+    assert segment_sum_count.launches == before + 1
+    sp, cp = segment_sum_count_plain(gid, val, live, G)
+    assert torch.equal(c, cp)   # counts are exact below 2^24
+    keep = live & (gid < G)
+    abs_sum = torch.zeros(G + 1, dtype=torch.float64, device=cuda)
+    abs_sum.index_add_(0, gid.long(), torch.where(keep, val.abs(), 0.0)
+                       .double())
+    # the atomics add in another order: a stated 1e-5 of the group's sum
+    # of |v|
+    assert bool(((s.double() - sp.double()).abs()
+                 <= 1e-5 * abs_sum[:G]).all())
+
+
+@pytest.mark.parametrize("aggs", [
+    [("v", "sum"), ("v", "mean"), ("w", "count"), ("w", "sum")],   # K3
+    [("v", "sum"), ("v", "min"), ("w", "max"), ("v", "count")]])   # sorted
+def test_group_by_on_card_matches_cpu(cuda, aggs):
+    rng = np.random.default_rng(0)
+    n = 1 << 18
+    data = {"k": rng.integers(0, 5000, n).astype(np.int64),
+            "v": rng.integers(-(1 << 30), 1 << 30, n).astype(np.int64),
+            "w": rng.integers(-100, 100, n).astype(np.int32)}
+    valid = rng.random(n) >= 0.1
+    batches = []
+    for dev in (cuda, "cpu"):
+        b = pt.record_batch(data, device=dev)
+        w = pt.Column(b["w"].data, b["w"].dtype,
+                      validity=torch.from_numpy(valid).to(dev))
+        batches.append(pt.RecordBatch((b["k"], b["v"], w), b.names))
+    before = segment_sums.launches
+    got = pt.group_by(batches[0], ["k"], aggs)
+    dense = aggs[1][1] == "mean"
+    assert segment_sums.launches == before + int(dense)
+    want = pt.group_by(batches[1], ["k"], aggs)
     assert got.to_pydict() == want.to_pydict()

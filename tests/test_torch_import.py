@@ -30,6 +30,12 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.kernels.compaction\n"
             "import arrow1_tpu_torch.kernels.fused_ops\n"
             "import arrow1_tpu_torch.ops.padded\n"
+            "import arrow1_tpu_torch.ops.hash\n"
+            "import arrow1_tpu_torch.ops.aggregate\n"
+            "import arrow1_tpu_torch.ops.groupby\n"
+            "import arrow1_tpu_torch.kernels.segsum2\n"
+            "import arrow1_tpu_torch.kernels.segsum\n"
+            "import arrow1_tpu_torch.compute\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -69,6 +75,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     x = np.zeros(4, np.int64)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.filter_project_flagship(x, x, np.zeros(4), 0.0, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.group_by(pt.record_batch(data), ["k"], [("k", "count")])
     assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
 
 
