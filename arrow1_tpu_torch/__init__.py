@@ -5,9 +5,11 @@ entry point runs on CUDA unless the caller passes ``device="cpu"``; the
 CUDA kernels (``csrc/``) build with nvcc at first use. This slice holds
 the data model, expressions over numeric and bool columns, filter and
 take, the compiled filter -> project -> group_by -> sort -> limit
-pipeline, the fused filter+project flagship, the eager ``group_by`` (K3
-for dense integer keys), the hash-aggregate and scalar-aggregate registry
-functions, and a pyarrow.compute-shaped facade (``compute``).
+pipeline (with ``join``), the fused filter+project flagship, the eager
+``group_by`` (K3 for dense integer keys), the eager hash ``join`` (all
+eight types) and ``join_asof``, the small sorted-build probe
+``broadcast_probe`` (K4), the hash-aggregate, scalar-aggregate and sort
+registry functions, and a pyarrow.compute-shaped facade (``compute``).
 """
 
 from . import dtypes
@@ -21,7 +23,9 @@ from .exec.compiled import CompiledPipeline, PipelineBuilder
 from .expr import Expression, call, field, literal
 from .interop import from_reference_arrays
 from .kernels.fused_ops import filter_project_flagship
+from .kernels.hashtable import broadcast_probe
 from .ops.groupby import group_by
+from .ops.join import join, join_asof
 from .ops.selection import filter, take
 from .registry import call_function, list_functions
 from .table import RecordBatch, record_batch
@@ -32,6 +36,7 @@ __all__ = ["dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
            "string", "uint8", "uint16", "uint32", "uint64", "resolve_device",
            "CompiledPipeline", "PipelineBuilder", "Expression", "call",
            "field", "literal", "from_reference_arrays",
-           "filter_project_flagship", "group_by", "filter", "take",
+           "filter_project_flagship", "broadcast_probe", "group_by",
+           "join", "join_asof", "filter", "take",
            "call_function",
            "list_functions", "RecordBatch", "record_batch"]

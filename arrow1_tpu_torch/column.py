@@ -28,11 +28,12 @@ class Dictionary:
     """Host-side value pool of a dictionary-encoded column. Equality is
     identity: a pool is created once, at ingest."""
 
-    __slots__ = ("values", "_rank", "_lock")
+    __slots__ = ("values", "_rank", "_index", "_lock")
 
     def __init__(self, values):
         self.values = np.asarray(values)
         self._rank = None
+        self._index = None
         self._lock = threading.Lock()
 
     def __len__(self):
@@ -61,6 +62,15 @@ class Dictionary:
         """True when the pool is already sorted (codes are ranks)."""
         r = self.rank
         return bool(np.array_equal(r, np.arange(len(r), dtype=r.dtype)))
+
+    @property
+    def index(self) -> dict:
+        """value -> code lookup."""
+        with self._lock:
+            if self._index is None:
+                self._index = {v: i for i, v in
+                               enumerate(self.values.tolist())}
+        return self._index
 
     def __repr__(self):
         return f"Dictionary({len(self.values)} values)"

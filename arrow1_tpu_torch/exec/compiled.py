@@ -2,12 +2,12 @@
 (counterpart of arrow1_tpu/exec/compiled.py).
 
 Every operator works on capacity-padded columns and a live-row mask, so a
-chain filter -> project -> group_by -> sort -> limit runs with no host
-round-trip between operators. PyTorch runs eagerly, so "compiled" means
+chain filter -> project -> join -> group_by -> sort -> limit runs with no
+host round-trip between operators. PyTorch runs eagerly, so "compiled" means
 exactly that plan: the only host sync is the overflow check at the end,
 before the live rows are materialized through the compaction kernel
 (kernels/compaction.py, K2). Capturing the plan in a CUDA graph is later
-work, as is ``join``.
+work.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ from ..kernels.radix import (decode_packed_key, field_of, minimal_sort_keys,
                              sort_key_decodable, sort_rows)
 from ..ops import selection
 from ..ops.aggregate import _as_type, _sum_output_type
-from ..ops.padded import (group_sort_padded, seg_diff_lo, seg_minmax_plane,
-                          seg_sum_plane, seg_values_at_ends)
+from ..ops.join import key_planes, key_validity
+from ..ops.padded import (group_sort_padded, join_padded, seg_diff_lo,
+                          seg_minmax_plane, seg_sum_plane, seg_values_at_ends)
 from ..table import RecordBatch, record_batch
 
 __all__ = ["PipelineBuilder", "CompiledPipeline"]
@@ -79,9 +80,19 @@ class PipelineBuilder:
                           keep_existing))
         return self
 
-    def join(self, *args, **kwargs) -> "PipelineBuilder":
-        raise Invalid("compiled join is not yet ported (ROADMAP Queue 1 "
-                      "item 9)")
+    def join(self, build: RecordBatch, keys, right_keys=None,
+             fanout: int = 4, join_type: str = "inner"
+             ) -> "PipelineBuilder":
+        """Equi-join against a pre-built build side. join_type: "inner" or
+        "left outer". Output capacity = probe capacity * fanout; more
+        matches set the overflow flag."""
+        if join_type not in ("inner", "left outer"):
+            raise Invalid(f"compiled join: unsupported join_type "
+                          f"{join_type!r} (inner / left outer)")
+        self._ops.append(("join", build,
+                          [keys] if isinstance(keys, str) else list(keys),
+                          right_keys, fanout, join_type))
+        return self
 
     def group_by(self, keys: Sequence[str],
                  aggregates: Sequence[Tuple[str, str]],
@@ -143,6 +154,48 @@ class CompiledPipeline:
                 out_names.append(name)
         return _State(RecordBatch(tuple(cols), tuple(out_names)),
                       state.live, state.overflow, all_live=state.all_live)
+
+    def _op_join(self, state: _State, build: RecordBatch, keys, right_keys,
+                 fanout, join_type="inner") -> _State:
+        """Static-capacity join (ops/padded.join_padded): the probe rows
+        are the live rows of the state; the output's live mask is the
+        valid pairs."""
+        right_keys = list(right_keys or keys)
+        probe = state.batch
+        pk_parts, bk_parts = [], []
+        for lk, rk in zip(keys, right_keys):
+            lkeys, rkeys = key_planes(probe.column(lk), build.column(rk))
+            if len(lkeys) == 2:   # class planes (0, NaN 1, null 2) as uint8
+                lkeys[0] = lkeys[0].to(torch.uint8)
+                rkeys[0] = rkeys[0].to(torch.uint8)
+            pk_parts.append(lkeys)
+            bk_parts.append(rkeys)
+        # exact matching over every normalized plane; a lone u64 key rides
+        # join_padded's single-plane form
+        if len(keys) == 1 and len(pk_parts[0]) == 1:
+            pk, bk = pk_parts[0][0], bk_parts[0][0]
+        else:
+            pk = [c for comps in pk_parts for c in comps]
+            bk = [c for comps in bk_parts for c in comps]
+        outer = join_type == "left outer"
+        pidx, bidx, pair_valid, pair_has_match, _, _, ovf = join_padded(
+            pk, bk, key_validity(probe, keys),
+            key_validity(build, right_keys), state.capacity * fanout,
+            outer=outer, probe_live=state.live)
+        left = selection.gather_batch(probe, pidx)
+        cols, names = list(left.columns), list(left.names)
+        rkeyset = set(right_keys)
+        rpay = [(n, c) for n, c in zip(build.names, build.columns)
+                if n not in rkeyset]
+        if rpay:
+            right = selection.gather_batch(
+                RecordBatch(tuple(c for _, c in rpay),
+                            tuple(n for n, _ in rpay)), bidx,
+                pair_has_match if outer else None)
+            cols += list(right.columns)
+            names += list(right.names)
+        return _State(RecordBatch(tuple(cols), tuple(names)), pair_valid,
+                      state.overflow | ovf, all_live=False)
 
     def _op_group_by(self, state: _State, keys, aggregates,
                      max_groups: int = 65536) -> _State:
@@ -345,7 +398,7 @@ class CompiledPipeline:
         out_batch, live, overflow = self._trace(batch)
         if bool(overflow):
             raise Invalid("compiled pipeline: capacity overflow: raise "
-                          "max_groups")
+                          "max_groups or the join fanout")
         if not materialize:
             return out_batch, live
         return selection.filter(out_batch, Column(live, dt.bool_))

@@ -21,7 +21,7 @@ from .table import RecordBatch
 
 __all__ = ["column_from_numpy", "column_from_arrow", "column_to_arrow",
            "record_batch_from_arrow", "record_batch_to_arrow",
-           "from_reference_arrays"]
+           "from_reference_arrays", "tensor_from_u64"]
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -160,3 +160,11 @@ def from_reference_arrays(
                                    dictionary=dictionary)
                  for data, validity, dictionary in arrays)
     return RecordBatch(cols, tuple(names))
+
+
+def tensor_from_u64(values, device) -> torch.Tensor:
+    """Unsigned 64-bit keys (a numpy uint64 array, or anything numpy reads
+    as one) as the int64 bit patterns the port's hash table and probes
+    take."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
+    return _to_device(arr.view(np.int64), device)

@@ -26,7 +26,8 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library_path",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "arrow1_tpu_torch"
-SOURCES = ("compaction.cu", "fused_filter_project.cu", "segment_sums.cu")
+SOURCES = ("compaction.cu", "fused_filter_project.cu", "segment_sums.cu",
+           "broadcast_probe.cu")
 # sm_90a: Hopper with its architecture-specific features. -Xptxas=-v puts
 # each kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

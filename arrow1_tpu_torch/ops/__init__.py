@@ -1,4 +1,4 @@
 """Compute kernels; importing this package registers them."""
 
 from . import (aggregate, arithmetic, boolean, compare, groupby,  # noqa: F401
-               hash, selection)
+               hash, join, selection, sort)

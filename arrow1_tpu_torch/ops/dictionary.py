@@ -1,0 +1,76 @@
+"""Dictionary unification and re-encoding (counterpart of
+arrow1_tpu/ops/dictionary.py).
+
+The value pools live on the host (``column.Dictionary``); only the code
+remap is a device gather. The join needs these for string keys whose two
+sides carry different pools, and for the full-outer coalesce of a key.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..column import Column, Dictionary
+from ..errors import Invalid
+
+__all__ = ["unify_dictionaries", "unify_pair", "reencode_against"]
+
+
+def _remap(col: Column, remap: np.ndarray) -> torch.Tensor:
+    if len(remap) == 0:
+        return col.data
+    table = torch.from_numpy(remap).to(col.device)
+    return table[col.data.long()]
+
+
+def unify_dictionaries(cols: Sequence[Column]
+                       ) -> Tuple[torch.Tensor, Dictionary]:
+    """Merge the pools of several dictionary-encoded columns, in order of
+    first appearance, and return the concatenated remapped codes and the
+    unified Dictionary."""
+    pool: dict = {}
+    values: List = []
+    remaps = []
+    for c in cols:
+        if c.dictionary is None:
+            raise Invalid("unify_dictionaries: column has no dictionary")
+        remap = np.empty(len(c.dictionary), dtype=np.int32)
+        for code, v in enumerate(c.dictionary.values.tolist()):
+            if v not in pool:
+                pool[v] = len(values)
+                values.append(v)
+            remap[code] = pool[v]
+        remaps.append(remap)
+    unified = Dictionary(np.array(values, dtype=object))
+    parts = [_remap(c, remap) for c, remap in zip(cols, remaps)]
+    return torch.cat(parts), unified
+
+
+def unify_pair(a: Column, b: Column) -> Tuple[Column, Column]:
+    """Two dictionary columns re-encoded against one merged pool."""
+    merged, d = unify_dictionaries([a, b])
+    return (Column(merged[:a.length], a.dtype, validity=a.validity,
+                   dictionary=d),
+            Column(merged[a.length:], b.dtype, validity=b.validity,
+                   dictionary=d))
+
+
+def reencode_against(col: Column, target: Dictionary) -> Column:
+    """Re-encode a dictionary column's codes against ``target``. A value
+    missing from the target raises (callers unify first)."""
+    if col.dictionary is None:
+        raise Invalid("reencode_against: column has no dictionary")
+    if col.dictionary is target:
+        return col
+    idx = target.index
+    try:
+        remap = np.array([idx[v] for v in col.dictionary.values.tolist()],
+                         dtype=np.int32)
+    except KeyError as e:
+        raise Invalid(f"reencode_against: value {e.args[0]!r} is not in "
+                      "the target dictionary") from None
+    return Column(_remap(col, remap), col.dtype, validity=col.validity,
+                  dictionary=target)

@@ -21,7 +21,8 @@ from ..kernels.compaction import compact
 from ..registry import register_function
 from ..table import RecordBatch
 
-__all__ = ["FilterOptions", "TakeOptions", "filter", "take", "take_column"]
+__all__ = ["FilterOptions", "TakeOptions", "filter", "take", "take_column",
+           "gather_batch"]
 
 
 @dataclasses.dataclass
@@ -45,6 +46,24 @@ def take_column(values: Column, indices: torch.Tensor,
                   dictionary=values.dictionary,
                   data2=None if values.data2 is None
                   else values.data2[indices])
+
+
+def gather_batch(batch: RecordBatch, idx: torch.Tensor,
+                 extra_validity=None) -> RecordBatch:
+    """Row gather of every column of ``batch`` at ``idx`` (``take_column``
+    per column), with ``extra_validity`` ANDed into each column's. It
+    stands in for the JAX package's ``gather_batch_packed``, whose packed
+    [n, W] int32 row matrix is a TPU gather layout. An empty batch gives
+    null rows (its data reads 0)."""
+    if batch.num_rows == 0 and idx.numel():
+        null = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
+        return RecordBatch(tuple(
+            Column(torch.zeros(idx.shape[0], dtype=c.data.dtype,
+                               device=idx.device), c.dtype, validity=null,
+                   dictionary=c.dictionary)
+            for c in batch.columns), batch.names)
+    return RecordBatch(tuple(take_column(c, idx, extra_validity)
+                             for c in batch.columns), batch.names)
 
 
 def _take_exec(args, options: TakeOptions, ctx):

@@ -12,6 +12,12 @@ trace records over 3 runs, the resulting idle share of the card, and the
 kernels that take the most device time (kernel records only, so no time
 is counted twice). Data is bench.py's recipe from ``--seed``; the
 group_by's ``w`` column is int32 with 10% nulls.
+
+It then profiles the joins: BASELINE config 4 (100M probe rows against
+10M build rows, ``join_data``; inner and left outer, over uniform and
+skewed probe keys) and TPC-H Q3 at SF1 cardinalities (``q3_data``:
+filter, join on the order key, group by order priority, sort), eager and
+through the compiled pipeline.
 """
 
 from __future__ import annotations
@@ -24,6 +30,97 @@ import numpy as np
 import torch
 
 import arrow1_tpu_torch as pt
+
+# TPC-H SF1 cardinalities
+Q3_LINEITEM = 6_001_215
+Q3_ORDERS = 1_500_000
+Q3_PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-NORMAL"], dtype=object)
+Q3_AGGS = [("l_extendedprice", "sum"), ("l_orderkey", "count")]
+Q3_SHIPDATE_MAX = 10_000   # Q3's filter: l_shipdate_days <= this
+
+
+def join_data(kind: str, npr: int = 100_000_000, nb: int = 10_000_000,
+              scale: int = 1):
+    """BASELINE config 4 (the recipe of benchmarks/r5/measure_r5.py,
+    seed 42). Build: 8M singleton keys plus 1M keys held twice, shuffled,
+    with a payload ``bw``. Probe: keys uniform over [0, 12M), so about a
+    quarter match nothing, with a payload ``pv``; 'skew' sends 10% of the
+    probes to one doubled key. Returns (pk, pv, bk, bw) as int64 arrays."""
+    rng = np.random.default_rng(42)
+    npr, nb = npr // scale, nb // scale
+    single, uniq, dom = (8_000_000 // scale, 9_000_000 // scale,
+                         12_000_000 // scale)
+    bk = np.concatenate([np.arange(single, dtype=np.int64),
+                         np.tile(np.arange(single, uniq, dtype=np.int64),
+                                 2)])
+    rng.shuffle(bk)
+    bw = rng.integers(0, 1 << 20, nb).astype(np.int64)
+    pk = rng.integers(0, dom, npr).astype(np.int64)
+    if kind == "skew":
+        hot = np.int64((single + uniq) // 2)   # a doubled key
+        pk[rng.random(npr) < 0.10] = hot
+    pv = rng.integers(0, 1 << 20, npr).astype(np.int64)
+    return pk, pv, bk, bw
+
+
+def q3_data(n_li: int = Q3_LINEITEM, n_orders: int = Q3_ORDERS,
+            seed: int = 1):
+    """TPC-H Q3's shape with the columns of the JAX package's TPC-H test
+    (tests/test_tpch_pipeline.py make_lineitem / make_orders) at the
+    given cardinalities: l_orderkey uniform over the order keys, prices
+    with two decimals, o_orderpriority a dictionary string. Returns
+    (lineitem, orders): dicts of name -> numpy array, with each string
+    column as (codes int32, value pool)."""
+    rng = np.random.default_rng(seed)
+    li = {
+        "l_orderkey": rng.integers(0, n_orders, n_li).astype(np.int64),
+        "l_quantity": rng.integers(1, 51, n_li).astype(np.int64),
+        "l_extendedprice": np.round(rng.uniform(1.0, 1000.0, n_li), 2),
+        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2),
+        "l_returnflag": (rng.integers(0, 3, n_li).astype(np.int32),
+                         np.array(["A", "N", "R"], dtype=object)),
+        "l_shipdate_days": rng.integers(8000, 11000, n_li).astype(np.int64),
+    }
+    orders = {
+        "o_orderkey": np.arange(n_orders, dtype=np.int64),
+        "o_custkey": rng.integers(0, 150_000, n_orders).astype(np.int64),
+        "o_orderpriority": (rng.integers(0, 3, n_orders).astype(np.int32),
+                            Q3_PRIORITIES),
+    }
+    return li, orders
+
+
+def q3_batch(cols: dict, device) -> "pt.RecordBatch":
+    """A q3_data table as a RecordBatch on ``device``."""
+    arrays = [(v[0], None, v[1]) if isinstance(v, tuple) else (v, None, None)
+              for v in cols.values()]
+    return pt.from_reference_arrays(list(cols), arrays, device)
+
+
+def q3_eager(li, orders):
+    """Q3 through the eager entry points: filter, join, group_by,
+    sort_indices, take."""
+    import arrow1_tpu_torch.compute as pc
+
+    mask = (pt.field("l_shipdate_days") <= Q3_SHIPDATE_MAX).execute(li)
+    joined = pt.join(pt.filter(li, mask), orders, keys=["l_orderkey"],
+                     right_keys=["o_orderkey"])
+    agg = pt.group_by(joined, ["o_orderpriority"], Q3_AGGS)
+    idx = pc.sort_indices(agg, sort_keys=[("l_extendedprice_sum",
+                                           "descending")])
+    return pc.take(agg, idx)
+
+
+def q3_pipeline(orders):
+    """Q3 through the compiled pipeline (fanout 1: every line item has
+    exactly one order)."""
+    return (pt.PipelineBuilder()
+            .filter(pt.field("l_shipdate_days") <= Q3_SHIPDATE_MAX)
+            .join(orders, keys=["l_orderkey"], right_keys=["o_orderkey"],
+                  fanout=1)
+            .group_by(["o_orderpriority"], Q3_AGGS)
+            .sort([("l_extendedprice_sum", "descending")])
+            .compile())
 
 
 def _device_us(evt) -> float:
@@ -72,6 +169,25 @@ def profile(label: str, fn, runs: int = 3, top: int = 12) -> None:
               f"{e.key[:100]}")
 
 
+def profile_joins(dev) -> None:
+    """BASELINE config 4's four legs and TPC-H Q3 at SF1."""
+    for kind in ("uniform", "skew"):
+        pk, pv, bk, bw = join_data(kind)
+        probe = pt.record_batch({"k": pk, "pv": pv}, device=dev)
+        build = pt.record_batch({"k": bk, "bw": bw}, device=dev)
+        del pk, pv, bk, bw
+        for jt in ("inner", "left outer"):
+            profile(f"join {probe.num_rows} x {build.num_rows}, {jt}, "
+                    f"{kind}", lambda: pt.join(probe, build, ["k"],
+                                               join_type=jt))
+        del probe, build
+    li, orders = q3_data()
+    lb, ob = q3_batch(li, dev), q3_batch(orders, dev)
+    profile("TPC-H Q3 at SF1, eager", lambda: q3_eager(lb, ob))
+    pipe = q3_pipeline(ob)
+    profile("TPC-H Q3 at SF1, compiled pipeline", lambda: pipe(lb))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
@@ -118,7 +234,10 @@ def main() -> None:
         batch = pt.RecordBatch(batch.columns + (w,), batch.names + ("w",))
         profile(f"eager group_by, {label}",
                 lambda: pt.group_by(batch, ["k"], aggs))
+    del batch, w, key, v, f
+    profile_joins(dev)
 
 
 if __name__ == "__main__":
     main()
+

@@ -37,7 +37,28 @@ source, all at once), then:
    sum/count/min/max at G = 2^20 on the sorted path (no K3). Every launch
    count is set to 0 just before and read just after: K3 must have
    launched exactly twice. Each result must equal a numpy oracle in the
-   path's row order (key order, first-appearance order).
+   path's row order (key order, first-appearance order);
+7. drives the small sorted-build probe (K4, broadcast_probe) through its
+   entry point at benchmarks/r2's shapes (seed 6, 9,994,240 probes in
+   [0, 2^40), T in {256, 1024, 2048}) and on a second probe set (half the
+   probes drawn from a build with duplicate runs, keys above 2^63), with
+   its launch count set to 0 before and read after; holds it bit for bit
+   against its plain version, the port's sort-merge probe (lo, counts)
+   and the hash-table probe's counts, and times kernel, plain version and
+   library call (two torch.searchsorted);
+8. drives the eager join at BASELINE config 4 at full size (100M probe
+   rows x 10M build rows, benchmarks/r5's recipe, seed 42): inner and
+   left outer over uniform and skewed probe keys. Each leg must match a
+   numpy bincount oracle in row count, mod-2^64 checksum and null rows,
+   and, in the full output, row for row over probe rows [0, 1M) and over
+   1M probe rows across the first hash-probe chunk boundary; prints the
+   wall time (median of 3), the peak device memory and the least-bytes
+   bound;
+9. drives TPC-H Q3 at SF1 cardinalities (6,001,215 line items, 1.5M
+   orders): filter, join on the order key, group by order priority, sum
+   and count, sorted by the sum, eagerly and through the compiled
+   pipeline; both must match a numpy oracle (counts exact, sums within
+   Q3_RTOL relative).
 
 The line before the last is a JSON object with one entry per kernel
 (time, bound, plain and library times, launches, error); the last line is
@@ -57,6 +78,15 @@ import torch
 DEVICE = "cuda:0"   # one card
 N_BIG = 10_000_000
 RUNS = 20
+K4_TS = (256, 1024, 2048)
+K4_N = 10_000_000 // 16384 * 16384   # benchmarks/r2: 9,994,240 probes
+JOIN_SLICE = 1_000_000               # probe rows checked row for row
+JOIN_SCALE = 1                       # config 4 at full size
+Q3_SCALE = 1                         # Q3 at SF1
+# Q3's float64 sums: the engine and numpy's bincount add in different
+# orders; at ~2M prices below 1000 with two decimals the rounding stays
+# far below this
+Q3_RTOL = 1e-9
 # HBM bandwidth from NVIDIA's data sheets, by device name (first match)
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
@@ -489,6 +519,291 @@ def phase_group_by(pt, dev, counted):
     return launches
 
 
+def _k4_sets(dev):
+    """benchmarks/r2/measure_r2.py op_broadcast's recipe (seed 6), and a
+    second set per T (seed 7): a build of T keys drawn with repeats from
+    T/4 keys over the whole u64 range (so half lie above 2^63), probes
+    half drawn from the build. Keys are int64 bit patterns."""
+    rng = np.random.default_rng(6)
+    sets = []
+    for T in K4_TS:
+        build = np.sort(rng.integers(0, 1 << 40, T).astype(np.uint64))
+        probe = rng.integers(0, 1 << 40, K4_N).astype(np.uint64)
+        sets.append((f"r2 T={T}", T, build, probe))
+    rng = np.random.default_rng(7)
+    for T in K4_TS:
+        distinct = rng.integers(0, 1 << 64, T // 4, dtype=np.uint64)
+        build = np.sort(rng.choice(distinct, T))
+        probe = np.concatenate([
+            rng.choice(build, K4_N // 2),
+            rng.integers(0, 1 << 64, K4_N - K4_N // 2, dtype=np.uint64)])
+        rng.shuffle(probe)
+        sets.append((f"duplicates, high keys, T={T}", T, build, probe))
+    return [(label, T, torch.from_numpy(b.view(np.int64)).to(dev),
+             torch.from_numpy(p.view(np.int64)).to(dev))
+            for label, T, b, p in sets]
+
+
+def phase_broadcast_probe(pt, ht, padded, dev, peak, counted):
+    """K4 through its entry point (counted), then against its plain
+    version and the join's probes, and timed. Returns (launches, error,
+    row of the T = 2048 r2 shape)."""
+    from arrow1_tpu_torch.ops.join import _hash_probe_ranges
+
+    sets = _k4_sets(dev)
+    torch.cuda.synchronize()
+    for kern in counted:
+        kern.launches = 0
+    results = [pt.broadcast_probe(build, probe)
+               for _, _, build, probe in sets]
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in counted}
+    if launches["broadcast_probe"] != len(sets):
+        raise AssertionError(f"K4 launched {launches['broadcast_probe']} "
+                             f"times for {len(sets)} probe sets")
+    err, row = 0.0, None
+    for (label, T, build, probe), (lo, cnt) in zip(sets, results):
+        plo, pcnt = ht.broadcast_probe_plain(build, probe)
+        if not (torch.equal(lo, plo) and torch.equal(cnt, pcnt)):
+            raise AssertionError(f"K4 differs from its plain version "
+                                 f"({label})")
+        err = max(err, _int_err(lo.long(), plo.long()),
+                  _int_err(cnt.long(), pcnt.long()))
+        order, slo, scnt = padded.probe_ranges_sortmerge(probe, build)
+        if not (torch.equal(order, torch.arange(T, device=dev))
+                and torch.equal(lo.long(), slo) and torch.equal(cnt, scnt)):
+            raise AssertionError(f"K4 differs from the sort-merge probe "
+                                 f"({label})")
+        if not torch.equal(cnt, _hash_probe_ranges(probe, build, None)[2]):
+            raise AssertionError(f"K4 counts differ from the hash-table "
+                                 f"probe ({label})")
+        line = (f"K4 broadcast_probe {K4_N} probes, {label}: bit-equal to "
+                "plain, sort-merge and hash probes")
+        if label.startswith("r2"):
+            ms = _time_ms(lambda: ht.broadcast_probe(build, probe))
+            plain_ms = _time_ms(lambda: ht.broadcast_probe_plain(build,
+                                                                  probe))
+            bf, pf = build ^ (-(1 << 63)), probe ^ (-(1 << 63))
+            lib_ms = _time_ms(lambda: (
+                torch.searchsorted(bf, pf, side="left"),
+                torch.searchsorted(bf, pf, side="right")))
+            bound = (K4_N * 16 + T * 8) / peak * 1e3
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"searchsorted x2 {lib_ms:.4f} ms, bound {bound:.4f} "
+                     f"ms ({bound / ms:.1%} of the HBM bound)")
+            if T == 2048:
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound)
+        print(line, flush=True)
+    return launches, err, row
+
+
+def _join_oracle(pk, pv, bk, bw, outer):
+    """measure_r5's oracle: output rows, sum of pv*bw over matched rows
+    (mod 2^64), rows with a null build side and the sum of their pv, from
+    per-key bincounts. Per-key sums stay below 2^53, so float64 weights
+    are exact."""
+    dom = int(max(pk.max(), bk.max())) + 1
+    cnt_b = np.bincount(bk, minlength=dom)
+    cnt_p = np.bincount(pk, minlength=dom)
+    sum_bw = np.bincount(bk, weights=bw.astype(np.float64),
+                         minlength=dom).astype(np.int64)
+    sum_pv = np.bincount(pk, weights=pv.astype(np.float64),
+                         minlength=dom).astype(np.int64)
+    with np.errstate(over="ignore"):
+        total = int((cnt_p * cnt_b).sum())
+        checksum = np.int64((sum_pv * sum_bw).sum())
+        n_null, null_pv = 0, np.int64(0)
+        if outer:
+            unmatched = cnt_b == 0
+            n_null = int(cnt_p[unmatched].sum())
+            null_pv = np.int64(sum_pv[unmatched].sum())
+            total += n_null
+    return total, int(checksum), n_null, int(null_pv)
+
+
+def _join_oracle_rows(pk, pv, bk, bw, outer, a, b):
+    """Row-exact output for probe rows [a, b): probe order, each probe's
+    matches in build order. Returns the window's first output row and
+    its (k, pv, bw, bw valid)."""
+    order = np.argsort(bk, kind="stable")
+    bks = bk[order]
+    cnt_b = np.bincount(bk, minlength=int(pk[:a].max(initial=0)) + 1)
+    emit_before = cnt_b[pk[:a]]
+    if outer:
+        emit_before = np.maximum(emit_before, 1)
+    p, v = pk[a:b], pv[a:b]
+    ls = np.searchsorted(bks, p, side="left")
+    cnt = np.searchsorted(bks, p, side="right") - ls
+    emit = np.maximum(cnt, 1) if outer else cnt
+    rows = np.repeat(np.arange(len(p)), emit)
+    within = np.arange(len(rows)) - (np.cumsum(emit) - emit)[rows]
+    has = cnt[rows] > 0
+    bidx = order[np.clip(ls[rows] + within, 0, len(bk) - 1)]
+    return (int(emit_before.sum()),
+            (p[rows], v[rows], np.where(has, bw[bidx], 0), has))
+
+
+def _join_sums(out):
+    """(rows, checksum, null rows, sum of pv over null rows) on the
+    card, int64 sums wrapping mod 2^64."""
+    opv, obw = out["pv"].data, out["bw"].data
+    valid = out["bw"].mask()
+    return (out.num_rows, int(torch.where(valid, opv * obw, 0).sum()),
+            int((~valid).sum()), int(torch.where(valid, 0, opv).sum()))
+
+
+def _join_windows(n):
+    """Probe-row windows checked row for row: the first JOIN_SLICE rows,
+    and JOIN_SLICE rows across the first hash-probe chunk boundary
+    (where the chunks' outputs are concatenated) when there is one."""
+    from arrow1_tpu_torch.kernels.hashtable import PROBE_CHUNK
+
+    wins = [(0, min(JOIN_SLICE, n))]
+    if PROBE_CHUNK < n:
+        a = max(PROBE_CHUNK - JOIN_SLICE // 2, 0)
+        wins.append((a, min(a + JOIN_SLICE, n)))
+    return wins
+
+
+def _check_join_rows(out, pk, pv, bk, bw, outer, label):
+    """The full output's rows of each window against the oracle's."""
+    for a, b in _join_windows(len(pk)):
+        start, (ek, epv, ebw, evalid) = _join_oracle_rows(
+            pk, pv, bk, bw, outer, a, b)
+        stop = start + len(ek)
+        got = [out[c].data[start:stop].cpu().numpy()
+               for c in ("k", "pv", "bw")]
+        gvalid = out["bw"].mask()[start:stop].cpu().numpy()
+        if not (len(got[0]) == len(ek) and np.array_equal(got[0], ek)
+                and np.array_equal(got[1], epv)
+                and np.array_equal(gvalid, evalid)
+                and np.array_equal(got[2][gvalid], ebw[evalid])):
+            raise AssertionError(f"join {label}: probe rows [{a}, {b}) "
+                                 "differ from the oracle row for row")
+
+
+def phase_join(pt, dev, peak, counted):
+    """BASELINE config 4 at full size: four legs of the eager join.
+    Returns the launch counts of the counted runs."""
+    from arrow1_tpu_torch.profile_main_path import join_data
+
+    launches = {kern.__name__: 0 for kern in counted}
+    for kind in ("uniform", "skew"):
+        pk, pv, bk, bw = join_data(kind, scale=JOIN_SCALE)
+        probe = pt.record_batch({"k": pk, "pv": pv}, device=dev)
+        build = pt.record_batch({"k": bk, "bw": bw}, device=dev)
+        for jt in ("inner", "left outer"):
+            outer = jt == "left outer"
+            label = f"{jt} {kind}"
+            want = _join_oracle(pk, pv, bk, bw, outer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in counted:
+                kern.launches = 0
+            out = pt.join(probe, build, ["k"], join_type=jt)
+            torch.cuda.synchronize()
+            for kern in counted:
+                launches[kern.__name__] += kern.launches
+            mem = torch.cuda.max_memory_allocated()
+            got = _join_sums(out)
+            if got != want:
+                raise AssertionError(f"join {label}: (rows, checksum, null "
+                                     f"rows, null pv) {got} != oracle {want}")
+            _check_join_rows(out, pk, pv, bk, bw, outer, label)
+            del out
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pt.join(probe, build, ["k"], join_type=jt)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                del out
+            nbytes = (len(pk) + len(bk)) * 16 + want[0] * (24 + outer)
+            wall = statistics.median(walls) * 1e3
+            wins = ", ".join(f"[{a}, {b})" for a, b in _join_windows(len(pk)))
+            print(f"join {len(pk)} x {len(bk)}, {label}: {want[0]} rows, "
+                  f"checksum and null rows match the oracle, probe rows "
+                  f"{wins} match row for row; wall {wall:.3f} ms "
+                  f"(median of 3), peak device memory "
+                  f"{mem / 2**30:.2f} GiB, least-bytes bound "
+                  f"{nbytes / peak * 1e3:.4f} ms ({nbytes / 1e9:.3f} GB)",
+                  flush=True)
+        del probe, build
+    return launches
+
+
+def _q3_oracle(li, orders, pm):
+    """Numpy Q3: line items passing the filter, each joined to its order
+    by key, grouped by priority; (priorities, sums, counts) sorted by the
+    sum, descending."""
+    keep = li["l_shipdate_days"] <= pm.Q3_SHIPDATE_MAX
+    okeys = orders["o_orderkey"]
+    pos = np.searchsorted(okeys, li["l_orderkey"][keep])
+    if not np.array_equal(okeys[pos], li["l_orderkey"][keep]):
+        raise AssertionError("Q3 data: a line item has no order")
+    codes, pool = orders["o_orderpriority"]
+    prio = codes[pos]
+    sums = np.bincount(prio, weights=li["l_extendedprice"][keep],
+                       minlength=len(pool))
+    counts = np.bincount(prio, minlength=len(pool))
+    order = np.argsort(-sums, kind="stable")
+    order = order[counts[order] > 0]
+    return pool[order], sums[order], counts[order]
+
+
+def _check_q3(out, want, label):
+    names, sums, counts = want
+    got_names = out["o_orderpriority"].to_numpy()
+    got_sums = out["l_extendedprice_sum"].data.cpu().numpy()
+    got_counts = out["l_orderkey_count"].data.cpu().numpy()
+    if not (got_names.tolist() == names.tolist()
+            and np.array_equal(got_counts, counts)
+            and np.allclose(got_sums, sums, rtol=Q3_RTOL, atol=0)):
+        raise AssertionError(f"Q3 {label} differs from the numpy oracle: "
+                             f"{got_names} {got_sums} {got_counts} vs "
+                             f"{names} {sums} {counts}")
+
+
+def phase_q3(pt, dev, counted):
+    """TPC-H Q3 at SF1 cardinalities, eager and compiled. Returns the
+    launch counts of the counted run."""
+    import arrow1_tpu_torch.profile_main_path as pm
+
+    li, orders = pm.q3_data(pm.Q3_LINEITEM // Q3_SCALE,
+                            pm.Q3_ORDERS // Q3_SCALE)
+    want = _q3_oracle(li, orders, pm)
+    lb, ob = pm.q3_batch(li, dev), pm.q3_batch(orders, dev)
+    pipe = pm.q3_pipeline(ob)
+    runs = (("eager", lambda: pm.q3_eager(lb, ob)),
+            ("compiled", lambda: pipe(lb)))
+    for label, fn in runs:   # uncounted warm-up run
+        _check_q3(fn(), want, label)
+    torch.cuda.synchronize()
+    for kern in counted:
+        kern.launches = 0
+    outs = [fn() for _, fn in runs]
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in counted}
+    if launches["compact"] <= 0:
+        raise AssertionError("Q3 launched no K2")
+    for (label, fn), out in zip(runs, outs):
+        _check_q3(out, want, label)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"TPC-H Q3 SF1 ({li['l_orderkey'].shape[0]} line items, "
+              f"{orders['o_orderkey'].shape[0]} orders), {label}: matches "
+              f"the numpy oracle; wall {statistics.median(walls) * 1e3:.3f} "
+              "ms (median of 3)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -499,8 +814,9 @@ def main() -> int:
     import arrow1_tpu_torch.ops.selection as selection
     from arrow1_tpu_torch import kernels as pt_kernels
     from arrow1_tpu_torch.kernels import (build, compaction, fused_ops,
-                                         segsum, segsum2)
+                                         hashtable, segsum, segsum2)
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _card_line()
@@ -543,8 +859,12 @@ def main() -> int:
     finally:
         padded.compact = selection.compact = compaction.compact
 
+    # every kernel's count is set to 0 before each path and read after it
+    all_kernels = (compaction.compact, fused_ops.filter_project_flagship,
+                   segsum2.segment_sums, segsum.segment_sum_count,
+                   hashtable.broadcast_probe)
     kernels = (compaction.compact, fused_ops.filter_project_flagship)
-    for kern in kernels:
+    for kern in all_kernels:
         kern.launches = 0
     per_run = []
     for label, batch, pipe, want in configs:
@@ -609,15 +929,28 @@ def main() -> int:
     # ---- phases 5 and 6: group accumulators and the eager group_by ----
     k3_err, k3_row = phase_segment_sums(segsum2, dev, peak)
     v1_err, v1_row = phase_segment_sum_count(segsum, dev, peak)
-    gb_launches = phase_group_by(pt, dev, (
-        segsum2.segment_sums, segsum.segment_sum_count, compaction.compact,
-        fused_ops.filter_project_flagship))
+    gb_launches = phase_group_by(pt, dev, all_kernels)
     print(f"group_by main path launches: {gb_launches}", flush=True)
     if gb_launches["segment_sums"] != 2:
         raise AssertionError(f"K3 launched {gb_launches['segment_sums']} "
                              "times in the group_by run, not 2")
     for kname, count in gb_launches.items():
         launches[kname] = launches.get(kname, 0) + count
+
+    # ---- phases 7 to 9: K4 and the joins ------------------------------
+    del configs, fkey, fv, ff, recorder
+    torch.cuda.empty_cache()
+    k4_launches, k4_err, k4_row = phase_broadcast_probe(
+        pt, hashtable, padded, dev, peak, all_kernels)
+    join_launches = phase_join(pt, dev, peak, all_kernels)
+    torch.cuda.empty_cache()
+    q3_launches = phase_q3(pt, dev, all_kernels)
+    for label, counts in (("K4", k4_launches), ("config-4 join",
+                                                join_launches),
+                          ("Q3", q3_launches)):
+        print(f"{label} main path launches: {counts}", flush=True)
+        for kname, count in counts.items():
+            launches[kname] = launches.get(kname, 0) + count
 
     result = {"kernels": [
         dict(name="compact", route="cuda",
@@ -641,7 +974,15 @@ def main() -> int:
              replaces="arrow1_tpu/kernels/segsum.py:69",
              launches=launches["segment_sum_count"], max_abs_err=v1_err,
              bound_by="bytes", **v1_row),
+        dict(name="broadcast_probe", route="cuda",
+             source="arrow1_tpu_torch/csrc/broadcast_probe.cu",
+             replaces="arrow1_tpu/kernels/hashtable.py:500",
+             launches=launches["broadcast_probe"], max_abs_err=k4_err,
+             bound_by="bytes", **k4_row),
     ]}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s (build included)",
+          flush=True)
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-compiled pipeline and the eager group_by on the card against the same
-calls on the CPU.
+compiled pipeline, the eager group_by and the joins on the card against
+the same calls on the CPU.
 
 These need an NVIDIA GPU and skip elsewhere. The file imports neither JAX
 nor the JAX package, so it also runs on a machine that has only torch:
@@ -16,6 +16,8 @@ import arrow1_tpu_torch as pt
 from arrow1_tpu_torch.kernels.compaction import compact, compact_plain
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
+from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
+                                                broadcast_probe_plain)
 from arrow1_tpu_torch.kernels.segsum import (segment_sum_count,
                                              segment_sum_count_plain)
 from arrow1_tpu_torch.kernels.segsum2 import segment_sums, \
@@ -184,3 +186,71 @@ def test_group_by_on_card_matches_cpu(cuda, aggs):
     assert segment_sums.launches == before + int(dense)
     want = pt.group_by(batches[1], ["k"], aggs)
     assert got.to_pydict() == want.to_pydict()
+
+
+def _k4_keys(T, n, seed):
+    """A sorted u64 build with duplicate runs and keys at and above 2^63
+    (int64 bit patterns), the extremes 0 and 2^64 - 1, and probes half
+    drawn from the build."""
+    rng = np.random.default_rng(seed)
+    distinct = rng.integers(0, 1 << 64, max(T // 3, 1), dtype=np.uint64)
+    build = np.sort(rng.choice(distinct, T))
+    if T > 2:
+        build[0], build[-1] = 0, np.iinfo(np.uint64).max
+    probe = np.concatenate([rng.choice(build, n // 2),
+                            rng.integers(0, 1 << 64, n - n // 2,
+                                         dtype=np.uint64)])
+    probe[:3] = [0, np.iinfo(np.uint64).max, 1 << 63]
+    return (torch.from_numpy(build.view(np.int64)),
+            torch.from_numpy(probe.view(np.int64)))
+
+
+@pytest.mark.parametrize("T", [1, 2, 255, 2048])
+@pytest.mark.parametrize("n", [3, 16384, 1_000_001])
+def test_broadcast_probe_kernel_matches_plain(cuda, T, n):
+    build, probe = (x.to(cuda) for x in _k4_keys(T, n, T + n))
+    before = broadcast_probe.launches
+    lo, cnt = broadcast_probe(build, probe)
+    assert broadcast_probe.launches == before + 1
+    plo, pcnt = broadcast_probe_plain(build, probe)
+    assert torch.equal(lo, plo) and torch.equal(cnt, pcnt)
+    # an odd offset into the probe (the wrapper realigns it)
+    lo1, cnt1 = broadcast_probe(build, probe[1:])
+    assert torch.equal(lo1, plo[1:]) and torch.equal(cnt1, pcnt[1:])
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left outer", "full outer",
+                                       "right semi"])
+def test_join_on_card_matches_cpu(cuda, join_type):
+    rng = np.random.default_rng(1)
+    n, m = 1 << 16, 1 << 12
+    left = {"k": rng.integers(0, 5000, n).astype(np.int64),
+            "v": rng.integers(-(1 << 30), 1 << 30, n).astype(np.int64)}
+    right = {"k": rng.integers(0, 5000, m).astype(np.int64),
+             "w": rng.standard_normal(m)}
+    got = pt.join(pt.record_batch(left, device=cuda),
+                  pt.record_batch(right, device=cuda), "k",
+                  join_type=join_type)
+    want = pt.join(pt.record_batch(left, device="cpu"),
+                   pt.record_batch(right, device="cpu"), "k",
+                   join_type=join_type)
+    assert got.to_pydict() == want.to_pydict()
+
+
+def test_compiled_join_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(2)
+    n = 1 << 16
+    facts = {"k": rng.integers(0, 3000, n).astype(np.int64),
+             "v": rng.integers(-100, 100, n).astype(np.int64)}
+    dims = {"k": np.arange(2000, dtype=np.int64),
+            "w": rng.integers(0, 1 << 20, 2000).astype(np.int64)}
+    outs = []
+    for dev in (cuda, "cpu"):
+        pipe = (pt.PipelineBuilder().filter(pt.field("v") > 0)
+                .join(pt.record_batch(dims, device=dev), "k", fanout=1,
+                      join_type="left outer")
+                .group_by(["k"], [("w", "sum"), ("v", "count")],
+                          max_groups=4096)
+                .compile())
+        outs.append(pipe(pt.record_batch(facts, device=dev)).to_pydict())
+    assert outs[0] == outs[1]

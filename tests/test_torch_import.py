@@ -36,6 +36,10 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.kernels.segsum2\n"
             "import arrow1_tpu_torch.kernels.segsum\n"
             "import arrow1_tpu_torch.compute\n"
+            "import arrow1_tpu_torch.kernels.hashtable\n"
+            "import arrow1_tpu_torch.ops.dictionary\n"
+            "import arrow1_tpu_torch.ops.join\n"
+            "import arrow1_tpu_torch.ops.sort\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -77,6 +81,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pt.filter_project_flagship(x, x, np.zeros(4), 0.0, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.group_by(pt.record_batch(data), ["k"], [("k", "count")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.join(pt.record_batch(data), pt.record_batch(data), "k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.join_asof(pt.record_batch(data), pt.record_batch(data), "k")
+    build = pt.record_batch(data, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.PipelineBuilder().join(build, "k").compile()(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.broadcast_probe(x, x)
     assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
 
 
