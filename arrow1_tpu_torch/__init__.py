@@ -9,10 +9,16 @@ pipeline (with ``join``), the fused filter+project flagship, the eager
 ``group_by`` (K3 for dense integer keys), the eager hash ``join`` (all
 eight types) and ``join_asof``, the small sorted-build probe
 ``broadcast_probe`` (K4), the hash-aggregate, scalar-aggregate and sort
-registry functions, and a pyarrow.compute-shaped facade (``compute``).
+registry functions, a pyarrow.compute-shaped facade (``compute``), and
+the query layer: ``Table`` (a sequence of batches), the streaming
+``ExecPlan`` (``exec``), pyarrow.acero-shaped ``Declaration``s
+(``acero``), ``query()`` and the TPC-H and BASELINE templates
+(``models``). ``kernels.compaction.compact_u64``,
+``kernels.compaction_split.compact_split`` and ``kernels.probes`` hold
+the kernels of the JAX package's remaining Pallas entry points.
 """
 
-from . import dtypes
+from . import acero, dtypes
 from .column import Column, Dictionary
 from .datum import Scalar, scalar
 from .dtypes import (DataType, binary, bool_, float16, float32, float64,
@@ -28,9 +34,11 @@ from .ops.groupby import group_by
 from .ops.join import join, join_asof
 from .ops.selection import filter, take
 from .registry import call_function, list_functions
-from .table import RecordBatch, record_batch
+from .query import Query, query
+from .table import (ChunkedColumn, RecordBatch, Table, concat_batches,
+                    concat_columns, record_batch, table)
 
-__all__ = ["dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
+__all__ = ["acero", "dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
            "binary", "bool_", "float16", "float32", "float64", "int8",
            "int16", "int32", "int64", "large_binary", "large_string",
            "string", "uint8", "uint16", "uint32", "uint64", "resolve_device",
@@ -39,4 +47,6 @@ __all__ = ["dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
            "filter_project_flagship", "broadcast_probe", "group_by",
            "join", "join_asof", "filter", "take",
            "call_function",
-           "list_functions", "RecordBatch", "record_batch"]
+           "list_functions", "RecordBatch", "record_batch", "Query",
+           "query", "ChunkedColumn", "Table", "concat_batches",
+           "concat_columns", "table"]

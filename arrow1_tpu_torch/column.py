@@ -101,6 +101,18 @@ class Column:
     def device(self) -> torch.device:
         return self.data.device
 
+    def slice(self, offset: int, length: Optional[int] = None) -> "Column":
+        """Rows [offset, offset + length) (to the end when length is None),
+        as views of this column's tensors."""
+        end = self.length if length is None else \
+            min(offset + length, self.length)
+        return Column(self.data[offset:end], self.dtype,
+                      validity=None if self.validity is None
+                      else self.validity[offset:end],
+                      dictionary=self.dictionary,
+                      data2=None if self.data2 is None
+                      else self.data2[offset:end])
+
     def mask(self) -> torch.Tensor:
         """The validity as a bool tensor (all True when there is none)."""
         if self.validity is None:

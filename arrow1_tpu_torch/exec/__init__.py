@@ -1,3 +1,9 @@
-"""Query execution: the compiled static-capacity pipeline."""
+"""Query execution: the push-model ExecPlan, streaming (chunked)
+aggregation, and the compiled static-capacity pipeline."""
 
 from .compiled import CompiledPipeline, PipelineBuilder  # noqa: F401
+from .plan import (Declaration, ExecNode, ExecPlan, aggregate_node,  # noqa: F401
+                   filter_node, join_node, order_by_node, project_node,
+                   sink_node, source_node)
+from .streaming import (StreamingAggregator, StreamingGroupBy,  # noqa: F401
+                        run_streaming_aggregate)

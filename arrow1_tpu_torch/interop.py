@@ -10,18 +10,19 @@ objects.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import dtypes as dt
 from .column import Column, Dictionary
-from .table import RecordBatch
+from .table import RecordBatch, Table
 
 __all__ = ["column_from_numpy", "column_from_arrow", "column_to_arrow",
            "record_batch_from_arrow", "record_batch_to_arrow",
-           "from_reference_arrays", "tensor_from_u64"]
+           "table_from_arrow", "table_to_arrow", "from_reference_arrays",
+           "tensor_from_u64"]
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -145,17 +146,46 @@ def record_batch_to_arrow(rb: RecordBatch):
                            names=list(rb.names))
 
 
-def from_reference_arrays(
-        names: Sequence[str],
-        arrays: Sequence[Tuple[np.ndarray, Optional[np.ndarray],
-                               Optional[np.ndarray]]],
-        device) -> RecordBatch:
-    """Build the port's RecordBatch from another engine's batch read out as
-    numpy: one ``(data, validity, dictionary)`` triple per column, where
-    ``validity`` is a bool array or None and ``dictionary`` the value pool
-    of a dictionary-encoded column (``data`` then holds its codes) or None.
-    Null slots keep the data values they had, so both engines see the
-    same state bit for bit."""
+def table_from_arrow(table, device=None) -> Table:
+    """pyarrow Table -> port Table on ``device`` (CUDA unless the caller
+    names another), one RecordBatch per pyarrow record batch (each string
+    column gets its own value pool)."""
+    import pyarrow as pa
+
+    from .device import resolve_device
+
+    device = resolve_device(device)
+    batches = table.to_batches()
+    if not batches:   # a Table holds at least one, possibly empty, batch
+        batches = [pa.record_batch([pa.array([], type=f.type)
+                                    for f in table.schema],
+                                   schema=table.schema)]
+    return Table([record_batch_from_arrow(b, device=device)
+                  for b in batches])
+
+
+def table_to_arrow(t: Table):
+    """Port Table -> pyarrow Table, batch for batch."""
+    import pyarrow as pa
+
+    return pa.Table.from_batches([record_batch_to_arrow(b)
+                                  for b in t.batches])
+
+
+def from_reference_arrays(names: Sequence[str], arrays, device):
+    """Build the port's state from another engine's read out as numpy.
+
+    ``arrays`` is one ``(data, validity, dictionary)`` triple per column,
+    where ``validity`` is a bool array or None and ``dictionary`` the value
+    pool of a dictionary-encoded column (``data`` then holds its codes) or
+    None: that gives a RecordBatch. A list of such lists, one per batch
+    (each with its own value pools, as an engine ingests them), gives a
+    Table. Null slots keep the data values they had, so both engines see
+    the same state bit for bit."""
+    arrays = list(arrays)
+    if arrays and isinstance(arrays[0], list):
+        return Table([from_reference_arrays(names, batch, device)
+                      for batch in arrays])
     cols = tuple(column_from_numpy(data, validity=validity, device=device,
                                    dictionary=dictionary)
                  for data, validity, dictionary in arrays)

@@ -18,6 +18,12 @@ It then profiles the joins: BASELINE config 4 (100M probe rows against
 skewed probe keys) and TPC-H Q3 at SF1 cardinalities (``q3_data``:
 filter, join on the order key, group by order priority, sort), eager and
 through the compiled pipeline.
+
+Last, the query layer: TPC-H Q1 and Q3 at SF10 cardinalities through
+``query()`` (``models.tpch``) over a Table of 2^20-row batches
+(``tpch_tables``), and BASELINE config 3, a 100M-row sort on a
+dictionary string and an int64 key with nulls (``sort_data``,
+``models.baseline_sort``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,14 @@ Q3_ORDERS = 1_500_000
 Q3_PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-NORMAL"], dtype=object)
 Q3_AGGS = [("l_extendedprice", "sum"), ("l_orderkey", "count")]
 Q3_SHIPDATE_MAX = 10_000   # Q3's filter: l_shipdate_days <= this
+# TPC-H SF10 cardinalities
+SF10_LINEITEM = 59_986_052
+SF10_ORDERS = 15_000_000
+SF10_CUSTOMERS = 1_500_000
+# Acero's TableSourceNodeOptions::kDefaultMaxBatchSize: a Table's batches
+BATCH_ROWS = 1 << 20
+CONFIG3_ROWS = 100_000_000
+SEGMENTS = np.array(["AUTO", "HOUSE", "MACH"], dtype=object)
 
 
 def join_data(kind: str, npr: int = 100_000_000, nb: int = 10_000_000,
@@ -88,6 +102,78 @@ def q3_data(n_li: int = Q3_LINEITEM, n_orders: int = Q3_ORDERS,
                             Q3_PRIORITIES),
     }
     return li, orders
+
+
+def tpch_tables(n_li: int = SF10_LINEITEM, n_orders: int = SF10_ORDERS,
+                n_customers: int = SF10_CUSTOMERS):
+    """lineitem, orders and customers with the columns and distributions
+    of the JAX package's TPC-H tests (tests/test_tpch_pipeline.py
+    make_lineitem / make_orders, tests/test_query.py's customers), at the
+    given cardinalities, from seeds 1, 2 and 3: l_orderkey uniform over
+    [0, n_orders), o_orderkey = arange(n_orders), o_custkey uniform over
+    [0, n_customers), c_custkey = arange(n_customers). Each string column
+    is (codes int32, value pool). Returns three dicts of name -> array."""
+    rng = np.random.default_rng(1)
+    li = {
+        "l_orderkey": rng.integers(0, n_orders, n_li).astype(np.int64),
+        "l_quantity": rng.integers(1, 51, n_li).astype(np.int64),
+        "l_extendedprice": np.round(rng.uniform(1.0, 1000.0, n_li), 2),
+        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2),
+        "l_returnflag": (rng.integers(0, 3, n_li).astype(np.int32),
+                         np.array(["A", "N", "R"], dtype=object)),
+        "l_shipdate_days": rng.integers(8000, 11000, n_li).astype(np.int64),
+    }
+    rng = np.random.default_rng(2)
+    orders = {
+        "o_orderkey": np.arange(n_orders, dtype=np.int64),
+        "o_custkey": rng.integers(0, n_customers, n_orders).astype(np.int64),
+        "o_orderpriority": (rng.integers(0, 3, n_orders).astype(np.int32),
+                            Q3_PRIORITIES),
+    }
+    rng = np.random.default_rng(3)
+    customers = {
+        "c_custkey": np.arange(n_customers, dtype=np.int64),
+        "c_segment": (rng.integers(0, 3, n_customers).astype(np.int32),
+                      SEGMENTS),
+    }
+    return li, orders, customers
+
+
+def as_table(cols: dict, device, batch_rows: int = BATCH_ROWS) -> "pt.Table":
+    """A tpch_tables table as a port Table of ``batch_rows``-row batches
+    (views of one set of device columns; string columns share one pool)."""
+    whole = q3_batch(cols, device)
+    return pt.Table([whole.slice(i, batch_rows)
+                     for i in range(0, max(whole.num_rows, 1), batch_rows)])
+
+
+def sort_data(n: int = CONFIG3_ROWS, seed: int = 9):
+    """BASELINE config 3 (the recipe of benchmarks/r3/measure_r3.py's
+    sort measurement, seed 9): ``s`` a dictionary string over 1000 values
+    sym0000-sym0999, ``k`` int64 in [-2^60, 2^60) with 1% nulls, ``pay``
+    int64 and ``price`` float64. Returns {name: array}, with ``s`` as
+    (codes, pool) and ``k`` as (data, validity)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 1000, n).astype(np.int32)
+    k = rng.integers(-(1 << 60), 1 << 60, n).astype(np.int64)
+    valid = rng.random(n) >= 0.01
+    pay = rng.integers(0, 1 << 30, n).astype(np.int64)
+    price = rng.standard_normal(n)
+    pool = np.asarray([f"sym{i:04d}" for i in range(1000)], object)
+    return {"s": (codes, pool), "k": (k, valid), "pay": pay, "price": price}
+
+
+def sort_batch(cols: dict, device) -> "pt.RecordBatch":
+    """A sort_data table as a RecordBatch on ``device``."""
+    codes, pool = cols["s"]
+    k, valid = cols["k"]
+    return pt.from_reference_arrays(
+        ["s", "k", "pay", "price"],
+        [(codes, None, pool), (k, valid, None), (cols["pay"], None, None),
+         (cols["price"], None, None)], device)
+
+
+CONFIG3_KEYS = [("s", "ascending"), ("k", "descending")]
 
 
 def q3_batch(cols: dict, device) -> "pt.RecordBatch":
@@ -188,6 +274,24 @@ def profile_joins(dev) -> None:
     profile("TPC-H Q3 at SF1, compiled pipeline", lambda: pipe(lb))
 
 
+def profile_query_layer(dev) -> None:
+    """TPC-H Q1 and Q3 at SF10 through query(), and config 3's sort."""
+    from arrow1_tpu_torch import models
+
+    li, orders, _ = tpch_tables()
+    lt, ob = as_table(li, dev), q3_batch(orders, dev)
+    del li, orders
+    profile(f"TPC-H Q1 at SF10, query(), {len(lt.batches)} batches",
+            lambda: models.q1_pricing_summary(lt))
+    profile(f"TPC-H Q3 at SF10, query(), {len(lt.batches)} batches",
+            lambda: models.q3_shipping_priority(lt, ob))
+    del lt, ob
+    batch = sort_batch(sort_data(), dev)
+    profile(f"BASELINE config 3: sort of {batch.num_rows} rows on "
+            "(s, k desc)", lambda: models.baseline_sort(batch,
+                                                        CONFIG3_KEYS))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
@@ -236,6 +340,7 @@ def main() -> None:
                 lambda: pt.group_by(batch, ["k"], aggs))
     del batch, w, key, v, f
     profile_joins(dev)
+    profile_query_layer(dev)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,23 @@
-"""RecordBatch: named, equal-length Columns (counterpart of
-arrow1_tpu/table.py)."""
+"""Tabular containers (counterpart of arrow1_tpu/table.py): RecordBatch,
+named equal-length Columns on one device, the unit every kernel runs on;
+Table, a host-side sequence of same-schema RecordBatches that the query
+layer streams batch by batch; ChunkedColumn, one column of a Table.
+
+List columns and two-limb decimals (``data2``) wait for the nested and
+decimal slices; ``concat_columns`` carries ``data2`` through unchanged.
+"""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-from .column import Column
-from .errors import KeyError_
+import torch
 
-__all__ = ["RecordBatch", "record_batch"]
+from .column import Column
+from .errors import Invalid, KeyError_
+
+__all__ = ["RecordBatch", "Table", "ChunkedColumn", "record_batch", "table",
+           "concat_batches", "concat_columns"]
 
 
 class RecordBatch:
@@ -44,6 +53,32 @@ class RecordBatch:
     def __getitem__(self, key) -> Column:
         return self.column(key)
 
+    def select(self, names: Sequence[str]) -> "RecordBatch":
+        return RecordBatch(tuple(self.column(n) for n in names), tuple(names))
+
+    def set_column(self, name: str, col: Column) -> "RecordBatch":
+        """Replace the column ``name``, or append it when there is none."""
+        if name in self.names:
+            cols = list(self.columns)
+            cols[self.names.index(name)] = col
+            return RecordBatch(tuple(cols), self.names)
+        return RecordBatch(self.columns + (col,), self.names + (name,))
+
+    def drop(self, names: Sequence[str]) -> "RecordBatch":
+        keep = [(n, c) for n, c in zip(self.names, self.columns)
+                if n not in names]
+        return RecordBatch(tuple(c for _, c in keep),
+                           tuple(n for n, _ in keep))
+
+    def rename(self, mapping: dict) -> "RecordBatch":
+        return RecordBatch(self.columns,
+                           tuple(mapping.get(n, n) for n in self.names))
+
+    def slice(self, offset: int,
+              length: Optional[int] = None) -> "RecordBatch":
+        return RecordBatch(tuple(c.slice(offset, length)
+                                 for c in self.columns), self.names)
+
     def to_pydict(self) -> dict:
         return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}
 
@@ -56,6 +91,151 @@ class RecordBatch:
         cols = ", ".join(f"{n}: {c.dtype!r}"
                          for n, c in zip(self.names, self.columns))
         return f"RecordBatch[{self.num_rows} rows]({cols})"
+
+
+def concat_columns(cols: Sequence[Column]) -> Column:
+    """Same-type Columns end to end (reference: array/concatenate.cc).
+    Validity is materialized when any part has one; dictionary columns
+    whose parts hold different value pools are re-encoded against one
+    merged pool (``ops.dictionary.unify_dictionaries``)."""
+    if not cols:
+        raise Invalid("concat_columns: no columns")
+    if len(cols) == 1:
+        return cols[0]
+    first = cols[0]
+    if any(c.dtype != first.dtype for c in cols):
+        raise Invalid("concat_columns: the columns differ in type: "
+                      f"{sorted({repr(c.dtype) for c in cols})}")
+    data = torch.cat([c.data for c in cols])
+    data2 = None if first.data2 is None else \
+        torch.cat([c.data2 for c in cols])
+    validity = None
+    if any(c.validity is not None for c in cols):
+        validity = torch.cat([c.mask() for c in cols])
+    dictionary = first.dictionary
+    if dictionary is not None and any(c.dictionary is not dictionary
+                                      for c in cols):
+        from .ops.dictionary import unify_dictionaries
+
+        data, dictionary = unify_dictionaries(cols)
+    return Column(data, first.dtype, validity=validity,
+                  dictionary=dictionary, data2=data2)
+
+
+def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
+    """Same-schema batches end to end, column by column
+    (``concat_columns``; reference: Table::CombineChunks)."""
+    if not batches:
+        raise Invalid("concat_batches: no batches")
+    if len(batches) == 1:
+        return batches[0]
+    names = batches[0].names
+    for b in batches[1:]:
+        if b.names != names:
+            raise Invalid(f"concat_batches: schemas differ: {list(names)} "
+                          f"vs {list(b.names)}")
+    return RecordBatch(tuple(concat_columns([b.columns[i] for b in batches])
+                             for i in range(len(names))), names)
+
+
+class ChunkedColumn:
+    """One column of a Table: a sequence of same-type Columns (reference:
+    chunked_array.h:67)."""
+
+    __slots__ = ("chunks",)
+
+    def __init__(self, chunks: Sequence[Column]):
+        if not chunks:
+            raise Invalid("ChunkedColumn requires at least one chunk")
+        if any(c.dtype != chunks[0].dtype for c in chunks):
+            raise Invalid("ChunkedColumn: the chunks differ in type")
+        self.chunks = list(chunks)
+
+    @property
+    def dtype(self):
+        return self.chunks[0].dtype
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunks)
+
+    @property
+    def length(self) -> int:
+        return sum(c.length for c in self.chunks)
+
+    def __len__(self):
+        return self.length
+
+    def chunk(self, i: int) -> Column:
+        return self.chunks[i]
+
+    def combine_chunks(self) -> Column:
+        return concat_columns(self.chunks)
+
+    def to_numpy(self):
+        return self.combine_chunks().to_numpy()
+
+    def to_pylist(self) -> list:
+        return [v for c in self.chunks for v in c.to_pylist()]
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.chunked_array([c.to_arrow() for c in self.chunks])
+
+    def __repr__(self):
+        return (f"ChunkedColumn<{self.dtype!r}>[{self.length} rows, "
+                f"{self.num_chunks} chunks]")
+
+
+class Table:
+    """A sequence of same-schema RecordBatches (reference: table.h:42).
+
+    A host-side container: device work runs per batch, as the query layer
+    streams it (``query``, ``exec.plan``), or on ``combine_chunks()``."""
+
+    __slots__ = ("batches", "names")
+
+    def __init__(self, batches: Sequence[RecordBatch]):
+        if not batches:
+            raise Invalid("Table requires at least one batch (possibly "
+                          "empty)")
+        names = batches[0].names
+        for b in batches[1:]:
+            if b.names != names:
+                raise Invalid(f"Table: schemas differ: {list(names)} vs "
+                              f"{list(b.names)}")
+        self.batches = list(batches)
+        self.names = names
+
+    @classmethod
+    def from_batches(cls, batches: Sequence[RecordBatch]) -> "Table":
+        return cls(list(batches))
+
+    @property
+    def num_rows(self) -> int:
+        return sum(b.num_rows for b in self.batches)
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.names)
+
+    def combine_chunks(self) -> RecordBatch:
+        return concat_batches(self.batches)
+
+    def column(self, key) -> ChunkedColumn:
+        return ChunkedColumn([b.column(key) for b in self.batches])
+
+    def __getitem__(self, key) -> ChunkedColumn:
+        return self.column(key)
+
+    def to_arrow(self):
+        from .interop import table_to_arrow
+
+        return table_to_arrow(self)
+
+    def __repr__(self):
+        return f"Table[{self.num_rows} rows, {len(self.batches)} batches]"
 
 
 def record_batch(data, names: Optional[Sequence[str]] = None,
@@ -75,3 +255,11 @@ def record_batch(data, names: Optional[Sequence[str]] = None,
         return RecordBatch(tuple(column_from_numpy(v, device=dev)
                                  for v in data), tuple(names))
     return record_batch_from_arrow(data, device=dev)
+
+
+def table(data, names: Optional[Sequence[str]] = None,
+          device=None) -> Table:
+    """A one-batch Table on ``device`` (CUDA unless the caller names
+    another), from what ``record_batch`` takes. ``interop.table_from_arrow``
+    keeps a pyarrow Table's record batches as the Table's batches."""
+    return Table([record_batch(data, names, device=device)])

@@ -58,10 +58,36 @@ source, all at once), then:
    orders): filter, join on the order key, group by order priority, sum
    and count, sorted by the sum, eagerly and through the compiled
    pipeline; both must match a numpy oracle (counts exact, sums within
-   Q3_RTOL relative).
+   Q3_RTOL relative);
+10. drives compact_u64 and compact_split (the ports of the JAX package's
+   last two compaction kernels) through their entry points at 9,999,360
+   rows of (i64, i64, f64 bit view) columns, selectivities 0.5, 0 and 1,
+   and at 1024 rows all kept, with their launch counts set to 0 before
+   and read after; holds each bit for bit against its plain version and
+   against K2 over [0, count), with outputs n + 1024 long, and times both
+   beside K2 (compact_split's kernels A and B also alone), the plain
+   versions and boolean-mask indexing;
+11. runs the probe matrix (kernels/probes.py) on the card: every probe
+   must read OK (its kernel launched once and equals its plain version);
+   each probe's kernel, plain version and, where one PyTorch call
+   computes the same output, library call are timed;
+12. drives the query layer at TPC-H SF10 cardinalities (59,986,052 line
+   items in 2^20-row batches, 15M orders, 1.5M customers): Q1, Q3, Q5 and
+   Q6 through query() (models.tpch), Q1 as an acero Declaration and Q3
+   through an ExecPlan with a JoinNode, each against a numpy oracle
+   (integers and counts exact, float64 sums within SF10_RTOL relative),
+   the acero and plan results equal to query()'s; prints each query's
+   wall time (median of 3), peak device memory, least-bytes bound, and
+   the K2, K3 and hash-join calls of one run;
+13. drives BASELINE config 3 through models.baseline_sort: 100M rows on
+   (dictionary string ascending, int64 with 1% nulls descending); checks
+   on the card that the output is a permutation of the input rows,
+   sorted, and stable; prints the wall time (median of 3) and peak
+   device memory.
 
 The line before the last is a JSON object with one entry per kernel
-(time, bound, plain and library times, launches, error); the last line is
+(time, bound, plain and library times, launches, error; each of the six
+probes has its own entry); the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result. Any failure exits non-zero.
 """
@@ -87,6 +113,10 @@ Q3_SCALE = 1                         # Q3 at SF1
 # orders; at ~2M prices below 1000 with two decimals the rounding stays
 # far below this
 Q3_RTOL = 1e-9
+SF10_RTOL = 1e-9     # the same bound for the SF10 queries' float64 sums
+U64_N = 10_000_000 // 1024 * 1024    # 9,999,360 rows: 9,765 tiles of 1024
+SF10_SCALE = 1       # TPC-H at SF10 cardinalities
+SORT_ROWS = 100_000_000              # BASELINE config 3
 # HBM bandwidth from NVIDIA's data sheets, by device name (first match)
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
@@ -804,6 +834,410 @@ def phase_q3(pt, dev, counted):
     return launches
 
 
+def _u64_inputs(n, sel, dev, seed=0):
+    """K2's 10M-row shape of PERF.md (i64 in [0, 2^20), i64 in
+    [-2^30, 2^30), f64 normal draws as their int64 bit view) at n rows,
+    with a mask of selectivity ``sel``."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, 1 << 20, n).astype(np.int64),
+            rng.integers(-(1 << 30), 1 << 30, n).astype(np.int64),
+            rng.standard_normal(n).view(np.int64)]
+    mask = rng.random(n) < sel
+    return (torch.from_numpy(mask).to(dev),
+            [torch.from_numpy(c).to(dev) for c in cols])
+
+
+def _check_u64_kernel(fn, plain, compact, mask, cols, label):
+    """Kernel vs plain version and vs K2 over [0, count); returns (error,
+    count)."""
+    outs, count = fn(mask, cols)
+    pouts, pcount = plain(mask, cols)
+    kouts, kcount = compact(mask, cols)
+    k = int(pcount)
+    if int(count) != k or int(kcount) != k:
+        raise AssertionError(f"{label}: count {int(count)}, plain {k}, K2 "
+                             f"{int(kcount)}")
+    n = mask.shape[0]
+    err = 0.0
+    for o, p, r in zip(outs, pouts, kouts):
+        if o.shape != (n + 1024,):
+            raise AssertionError(f"{label}: output of {o.shape[0]} slots, "
+                                 f"not n + 1024 = {n + 1024}")
+        if not (torch.equal(o[:k], p[:k]) and torch.equal(o[:k], r[:k])):
+            raise AssertionError(f"{label}: output differs from the plain "
+                                 "version or from K2")
+        err = max(err, _int_err(o[:k], p[:k]))
+    return err, k
+
+
+def phase_u64_compaction(pt_kernels, dev, peak):
+    """compact_u64 and compact_split through their entry points (counted),
+    against their plain versions and K2, and timed beside K2. Returns
+    (launches, errors, rows)."""
+    from arrow1_tpu_torch.kernels import compaction_split as split
+
+    comp = pt_kernels.compaction
+    kernels = {"compact_u64": (comp.compact_u64, comp.compact_u64_plain),
+               "compact_split": (split.compact_split,
+                                 split.compact_split_plain)}
+    cases = [(f"n={U64_N} sel={sel}", _u64_inputs(U64_N, sel, dev))
+             for sel in (0.5, 0.0, 1.0)]
+    cases.append(("n=1024 all kept", _u64_inputs(1024, 1.0, dev)))
+    torch.cuda.synchronize()
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    for _, (mask, cols) in cases:
+        for fn, _ in kernels.values():
+            fn(mask, cols)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+    errs = {name: 0.0 for name in kernels}
+    for label, (mask, cols) in cases:
+        for name, (fn, plain) in kernels.items():
+            e, k = _check_u64_kernel(fn, plain, comp.compact, mask, cols,
+                                     f"{name} {label}")
+            errs[name] = max(errs[name], e)
+        print(f"compact_u64, compact_split {label} (kept {k}): bit-equal to "
+              "their plain versions and to K2, outputs n + 1024 long",
+              flush=True)
+    mask, cols = cases[0][1]
+    k = int(mask.sum())
+    n = U64_N
+    bound = (n + n * 24 + k * 24) / peak * 1e3
+    lib_ms = _time_ms(lambda: [c[mask] for c in cols])
+    k2_ms = _time_ms(lambda: comp.compact(mask, cols))
+    rows = {}
+    for name, (fn, plain) in kernels.items():
+        ms = _time_ms(lambda: fn(mask, cols))
+        plain_ms = _time_ms(lambda: plain(mask, cols))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound)
+        print(f"{name} n={n} x (i64,i64,f64) sel 0.5 (kept {k}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, mask indexing "
+              f"{lib_ms:.4f} ms, K2 compact {k2_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound / ms:.1%} of the HBM bound)",
+              flush=True)
+    pos = split.positions(mask)
+    bases, _ = split.tile_bases(pos)
+    a_ms = _time_ms(lambda: split.positions(mask))
+    b_ms = _time_ms(lambda: split.place(mask, pos, bases, cols))
+    glue_ms = _time_ms(lambda: split.tile_bases(pos))
+    a_bound = n * 5 / peak * 1e3
+    b_bound = (n * 5 + n * 24 + k * 24) / peak * 1e3
+    print(f"compact_split kernel A (positions) {a_ms:.4f} ms (bound "
+          f"{a_bound:.4f} ms), torch glue (bases) {glue_ms:.4f} ms, kernel B "
+          f"(place) {b_ms:.4f} ms (bound {b_bound:.4f} ms)", flush=True)
+    rows["compact_split"].update(kernel_a_ms=a_ms, kernel_b_ms=b_ms)
+    return launches, errs, rows
+
+
+# probe name -> line of its pallas_call in the reference
+PROBE_LINES = {"blocked-1d": 41, "blocked-2d": 50, "manual-dma-matmul": 75,
+               "cumsum-1d": 90, "smem-output": 100, "dma-in-when": 120}
+
+
+def phase_probes(dev, peak):
+    """The probe matrix on the card (counted); every probe must read OK.
+    Returns (launches, errors, rows), each keyed by probe name. A probe's
+    library call is the one PyTorch call that computes its output (none
+    for manual-dma-matmul and dma-in-when, which take two)."""
+    from arrow1_tpu_torch.kernels import probes
+
+    torch.cuda.synchronize()
+    probes.run_probe.launches = dict.fromkeys(probes.PROBES, 0)
+    report = probes.run_probes(dev)
+    torch.cuda.synchronize()
+    launches = dict(probes.run_probe.launches)
+    bad = {k: v for k, v in report.items() if v != "OK"}
+    if bad or any(c != 1 for c in launches.values()):
+        raise AssertionError(f"probes: {bad or report}, kernel launches "
+                             f"{launches}")
+    print(f"probes: {report}", flush=True)
+    xs = probes.probe_inputs(dev)
+    libraries = {"blocked-1d": lambda x: x * 2, "blocked-2d": lambda x: x * 2,
+                 "cumsum-1d": lambda x: torch.cumsum(x, 0, dtype=torch.int32),
+                 "smem-output": lambda x: x.sum(dtype=torch.int32)}
+    errs, rows = {}, {}
+    for name, (_, kind) in probes.PROBES.items():
+        x = xs[kind]
+        got, want = probes.run_probe(name, x), probes.plain(name, x)
+        errs[name] = _int_err(got.long(), want.long())
+        if errs[name]:
+            raise AssertionError(f"probe {name}: differs from its plain "
+                                 "version")
+        lib = libraries.get(name)
+        rows[name] = dict(
+            ms=_time_ms(lambda: probes.run_probe(name, x)),
+            plain_ms=_time_ms(lambda: probes.plain(name, x)),
+            bound_ms=(x.numel() * 4 + got.numel() * 4) / peak * 1e3,
+            library_ms=None if lib is None else _time_ms(lambda: lib(x)))
+        r = rows[name]
+        lib_text = "" if lib is None else \
+            f", library {r['library_ms'] * 1e3:.2f} us"
+        print(f"probe {name}: OK; kernel {r['ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us{lib_text}, bound "
+              f"{r['bound_ms'] * 1e3:.4f} us", flush=True)
+    return launches, errs, rows
+
+
+def _sf10_oracles(li, orders, customers):
+    """Numpy answers of Q1, Q3, Q5 and Q6 over the SF10 tables: per group,
+    in each query's output order and column order (aggregates, then the
+    key), the integer sums and counts and the float64 sums."""
+    flag_codes, flag_pool = li["l_returnflag"]
+    price = li["l_extendedprice"]
+    qty = li["l_quantity"]
+    out = {}
+    keep = li["l_shipdate_days"] <= 10000
+    fl = flag_codes[keep]
+    out["q1"] = dict(
+        l_quantity_sum=np.bincount(fl, weights=qty[keep], minlength=3)
+        .astype(np.int64),
+        l_extendedprice_sum=np.bincount(fl, weights=price[keep],
+                                        minlength=3),
+        l_quantity_count=np.bincount(fl, minlength=3),
+        l_returnflag=flag_pool)
+    prio_codes, prio_pool = orders["o_orderpriority"]
+    okey = li["l_orderkey"]   # o_orderkey is arange: a key is its row
+    prio = prio_codes[okey]
+    sums = np.bincount(prio, weights=price, minlength=3)
+    order = np.argsort(-sums, kind="stable")[:10]
+    out["q3"] = dict(l_extendedprice_sum=sums[order],
+                     l_orderkey_count=np.bincount(prio, minlength=3)[order],
+                     o_orderpriority=prio_pool[order])
+    seg_codes, seg_pool = customers["c_segment"]
+    seg = seg_codes[orders["o_custkey"][okey]]
+    sums = np.bincount(seg, weights=price, minlength=3)
+    order = np.argsort(-sums, kind="stable")[:10]
+    out["q5"] = dict(l_extendedprice_sum=sums[order],
+                     c_segment=seg_pool[order])
+    disc = li["l_discount"]
+    keep = (disc >= 0.02) & (disc <= 0.09) & (qty < 24)
+    out["q6"] = dict(l_extendedprice_sum=np.bincount(
+        flag_codes[keep], weights=price[keep], minlength=3),
+        l_returnflag=flag_pool)
+    return out
+
+
+def _check_sf10(out, want, label, key=None):
+    """A query's batch against ``want`` (name -> numpy array): exact for
+    strings and integers, SF10_RTOL for float64 sums. With ``key``, rows
+    are matched by that column (group order is the path's)."""
+    got = {n: out[n].to_numpy() for n in out.names}
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)}, oracle "
+                             f"{list(want)}")
+    if key is not None:
+        pos = {v: i for i, v in enumerate(got[key].tolist())}
+        order = [pos.get(v, -1) for v in want[key].tolist()]
+        if sorted(order) != list(range(len(got[key]))):
+            raise AssertionError(f"{label}: groups {got[key]} vs oracle "
+                                 f"{want[key]}")
+        got = {n: v[order] for n, v in got.items()}
+    for name, ref in want.items():
+        g = got[name]
+        ok = len(g) == len(ref) and (
+            np.allclose(g.astype(np.float64), ref, rtol=SF10_RTOL, atol=0)
+            if ref.dtype.kind == "f" else g.tolist() == ref.tolist())
+        if not ok:
+            raise AssertionError(f"{label}: column {name} {g} differs from "
+                                 f"{ref}")
+
+
+class _CallCounter:
+    """Stands in for ``ops.join.join`` and counts its calls (each builds
+    a hash table)."""
+
+    def __init__(self, real):
+        self.real = real
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.real(*args, **kwargs)
+
+
+def phase_sf10(pt, dev, peak, counted):
+    """The query layer at TPC-H SF10 cardinalities. Returns the launch
+    counts of the counted runs."""
+    import arrow1_tpu_torch.ops.join as ops_join
+    import arrow1_tpu_torch.profile_main_path as pm
+    from arrow1_tpu_torch import acero, models
+    from arrow1_tpu_torch.exec import plan
+
+    t0 = time.perf_counter()
+    li, orders, customers = pm.tpch_tables(pm.SF10_LINEITEM // SF10_SCALE,
+                                           pm.SF10_ORDERS // SF10_SCALE,
+                                           pm.SF10_CUSTOMERS // SF10_SCALE)
+    want = _sf10_oracles(li, orders, customers)
+    lt = pm.as_table(li, dev)
+    ob, cb = pm.q3_batch(orders, dev), pm.q3_batch(customers, dev)
+    n_li = li["l_orderkey"].shape[0]
+    del li, orders, customers
+    torch.cuda.synchronize()
+    print(f"SF10 data: {n_li} line items in {len(lt.batches)} batches, "
+          f"{ob.num_rows} orders, {cb.num_rows} customers; made and "
+          f"copied in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def acero_q1():
+        return acero.Declaration.from_sequence([
+            acero.Declaration("table_source",
+                              acero.TableSourceNodeOptions(lt)),
+            acero.Declaration("filter", acero.FilterNodeOptions(
+                pt.field("l_shipdate_days") <= 10000)),
+            acero.Declaration("aggregate", acero.AggregateNodeOptions(
+                [("l_quantity", "sum"), ("l_extendedprice", "sum"),
+                 ("l_quantity", "count")], keys=["l_returnflag"])),
+            acero.Declaration("order_by", acero.OrderByNodeOptions(
+                [("l_returnflag", "ascending")]))]).to_table() \
+            .combine_chunks()
+
+    def plan_q3():
+        p = plan.ExecPlan()
+        join = plan.join_node(p, plan.source_node(p, lt.batches),
+                              plan.source_node(p, [ob]), ["l_orderkey"],
+                              ["o_orderkey"])
+        agg = plan.aggregate_node(p, join, ["o_orderpriority"],
+                                  [("l_extendedprice", "sum"),
+                                   ("l_orderkey", "count")])
+        sink = plan.sink_node(p, plan.order_by_node(
+            p, agg, [("l_extendedprice_sum", "descending")]))
+        p.run()
+        return sink.result.combine_chunks()
+
+    # (label, run, oracle, key to match groups by, bytes the query reads)
+    n_o, n_c = ob.num_rows, cb.num_rows
+    queries = [
+        ("Q1 query()", lambda: models.q1_pricing_summary(lt), "q1", None,
+         n_li * 28),
+        ("Q1 acero", acero_q1, "q1", None, n_li * 28),
+        ("Q3 query()", lambda: models.q3_shipping_priority(lt, ob), "q3",
+         None, n_li * 16 + n_o * 12),
+        ("Q3 exec.plan", plan_q3, "q3", None, n_li * 16 + n_o * 12),
+        ("Q5 query()", lambda: models.q5_local_supplier_volume(lt, ob, cb),
+         "q5", None, n_li * 16 + n_o * 16 + n_c * 12),
+        ("Q6 query()", lambda: models.q6_forecast(lt), "q6", "l_returnflag",
+         n_li * 28),
+    ]
+    launches = {kern.__name__: 0 for kern in counted}
+    results = {}
+    for label, run, oracle, key, nbytes in queries:
+        run()   # warm-up (uncounted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in counted:
+            kern.launches = 0
+        counter = _CallCounter(ops_join.join)
+        ops_join.join = counter
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            ops_join.join = counter.real
+        mem = torch.cuda.max_memory_allocated()
+        run_launches = {kern.__name__: kern.launches for kern in counted}
+        for name, count in run_launches.items():
+            launches[name] += count
+        if run_launches["compact"] <= 0 and oracle in ("q1", "q6"):
+            raise AssertionError(f"{label}: the filter launched no K2")
+        _check_sf10(out, want[oracle], label, key)
+        if oracle in results:   # acero and the plan against query()
+            _check_sf10(out, {n: results[oracle][n].to_numpy()
+                              for n in results[oracle].names},
+                        f"{label} against query()", key)
+        else:
+            results[oracle] = out
+        del out
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"TPC-H SF10 {label}: matches the numpy oracle; wall "
+              f"{statistics.median(walls) * 1e3:.3f} ms (median of 3), peak "
+              f"device memory {mem / 2**30:.2f} GiB, least-bytes bound "
+              f"{nbytes / peak * 1e3:.4f} ms ({nbytes / 1e9:.3f} GB); one "
+              f"run: K2 {run_launches['compact']}, K3 "
+              f"{run_launches['segment_sums']}, hash-join calls "
+              f"{counter.calls}", flush=True)
+    return launches
+
+
+def _check_config3(out, inp):
+    """On the card: ``out`` is a permutation of ``inp``'s rows, sorted on
+    (rank of s ascending, k descending, nulls last), and stable. Rows are
+    identified by (price bits, pay), which must be distinct."""
+    def by_id(b):   # stable order of the rows by (price bits, pay)
+        pay, pb = b["pay"].data, b["price"].data.view(torch.int64)
+        o = torch.argsort(pay, stable=True)
+        return o[torch.argsort(pb[o], stable=True)]
+
+    oi, oo = by_id(inp), by_id(out)
+    pb_i = inp["price"].data.view(torch.int64)[oi]
+    pay_i = inp["pay"].data[oi]
+    if bool(((pb_i[1:] == pb_i[:-1]) & (pay_i[1:] == pay_i[:-1])).any()):
+        raise AssertionError("config 3: (price, pay) does not identify the "
+                             "input rows")
+    idx = torch.empty_like(oi)
+    idx[oo] = oi   # the input row of each output row
+    for name in ("s", "k", "pay", "price"):
+        a, b = out[name], inp[name]
+        bits = (lambda t: t.view(torch.int64)) if name == "price" else \
+            (lambda t: t)
+        if not torch.equal(bits(a.data), bits(b.data)[idx]) or \
+                not torch.equal(a.mask(), b.mask()[idx]):
+            raise AssertionError(f"config 3: column {name} is not a "
+                                 "permutation of the input's")
+    rank = torch.from_numpy(out["s"].dictionary.rank.astype(np.int64)).to(
+        idx.device)[out["s"].data.long()]
+    null = ~out["k"].mask()
+    kd = torch.where(null, 0, -out["k"].data)   # descending; nulls tie
+    r0, r1, c0, c1, k0, k1 = (rank[:-1], rank[1:], null[:-1], null[1:],
+                              kd[:-1], kd[1:])
+    eq = (r0 == r1) & (c0 == c1) & (k0 == k1)
+    lt = (r0 < r1) | ((r0 == r1) & ((c0 < c1) | ((c0 == c1) & (k0 < k1))))
+    if not bool((lt | eq).all()):
+        raise AssertionError("config 3: the output is not sorted")
+    if not bool((~eq | (idx[:-1] < idx[1:])).all()):
+        raise AssertionError("config 3: the sort is not stable")
+
+
+def phase_config3(dev):
+    """BASELINE config 3 through models.baseline_sort."""
+    import arrow1_tpu_torch.profile_main_path as pm
+    from arrow1_tpu_torch import models
+
+    t0 = time.perf_counter()
+    batch = pm.sort_batch(pm.sort_data(SORT_ROWS), dev)
+    torch.cuda.synchronize()
+    print(f"config 3 data: {batch.num_rows} rows made and copied in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    models.baseline_sort(batch, pm.CONFIG3_KEYS)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = models.baseline_sort(batch, pm.CONFIG3_KEYS)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated()
+    _check_config3(out, batch)
+    del out
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models.baseline_sort(batch, pm.CONFIG3_KEYS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"config 3 sort of {batch.num_rows} rows on (s, k desc): a "
+          f"sorted, stable permutation of the input; wall "
+          f"{statistics.median(walls) * 1e3:.3f} ms (median of 3), peak "
+          f"device memory {mem / 2**30:.2f} GiB", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -952,6 +1386,22 @@ def main() -> int:
         for kname, count in counts.items():
             launches[kname] = launches.get(kname, 0) + count
 
+    # ---- phases 10 to 13: the last kernels and the query layer -------
+    torch.cuda.empty_cache()
+    u64_launches, u64_errs, u64_rows = phase_u64_compaction(pt_kernels, dev,
+                                                            peak)
+    probe_launches, probe_errs, probe_rows = phase_probes(dev, peak)
+    print(f"compaction variants launches: {u64_launches}; probe launches: "
+          f"{probe_launches}", flush=True)
+    launches.update(u64_launches)
+    torch.cuda.empty_cache()
+    sf10_launches = phase_sf10(pt, dev, peak, all_kernels)
+    print(f"SF10 query layer launches: {sf10_launches}", flush=True)
+    for kname, count in sf10_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    phase_config3(dev)
+
     result = {"kernels": [
         dict(name="compact", route="cuda",
              source="arrow1_tpu_torch/csrc/compaction.cu",
@@ -979,7 +1429,25 @@ def main() -> int:
              replaces="arrow1_tpu/kernels/hashtable.py:500",
              launches=launches["broadcast_probe"], max_abs_err=k4_err,
              bound_by="bytes", **k4_row),
-    ]}
+        dict(name="compact_u64", route="cuda",
+             source="arrow1_tpu_torch/csrc/compact_u64.cu",
+             replaces="arrow1_tpu/kernels/compaction.py:148",
+             launches=launches["compact_u64"],
+             max_abs_err=u64_errs["compact_u64"], bound_by="bytes",
+             **u64_rows["compact_u64"]),
+        dict(name="compact_split", route="cuda",
+             source="arrow1_tpu_torch/csrc/compaction_split.cu",
+             replaces="arrow1_tpu/kernels/compaction_split.py:148",
+             launches=launches["compact_split"],
+             max_abs_err=u64_errs["compact_split"], bound_by="bytes",
+             **u64_rows["compact_split"]),
+    ] + [
+        dict(name=f"run_probes/{pname}", route="cuda",
+             source="arrow1_tpu_torch/csrc/probes.cu",
+             replaces=f"arrow1_tpu/kernels/tpu_probes.py:{line}",
+             launches=probe_launches[pname], max_abs_err=probe_errs[pname],
+             bound_by="bytes", **probe_rows[pname])
+        for pname, line in PROBE_LINES.items()]}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s (build included)",
           flush=True)

@@ -13,11 +13,16 @@ import pytest
 import torch
 
 import arrow1_tpu_torch as pt
-from arrow1_tpu_torch.kernels.compaction import compact, compact_plain
+from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
+                                                 compact_u64,
+                                                 compact_u64_plain)
+from arrow1_tpu_torch.kernels.compaction_split import (compact_split,
+                                                       compact_split_plain)
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
 from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
                                                 broadcast_probe_plain)
+from arrow1_tpu_torch.kernels.probes import run_probe, run_probes
 from arrow1_tpu_torch.kernels.segsum import (segment_sum_count,
                                              segment_sum_count_plain)
 from arrow1_tpu_torch.kernels.segsum2 import segment_sums, \
@@ -254,3 +259,53 @@ def test_compiled_join_on_card_matches_cpu(cuda):
                 .compile())
         outs.append(pipe(pt.record_batch(facts, device=dev)).to_pydict())
     assert outs[0] == outs[1]
+
+
+def _u64_inputs(n, sel, seed, dev):
+    """i64 extremes, u64 keys at and above 2^63 and f64 bit views (NaN
+    payloads, -0.0), with a mask of selectivity ``sel``."""
+    rng = np.random.default_rng(seed)
+    i64 = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64,
+                       endpoint=True)
+    i64[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max]
+    u64 = rng.integers(1 << 63, (1 << 64) - 1, n, dtype=np.uint64,
+                       endpoint=True)
+    f64 = rng.standard_normal(n)
+    f64[:2] = [-0.0, np.nan]
+    bits = f64.view(np.int64).copy()
+    bits[2 % n] = np.int64(0x7FF0000000000BAD)   # a NaN payload
+    mask = rng.random(n) < sel
+    return (torch.from_numpy(mask).to(dev),
+            [torch.from_numpy(i64).to(dev),
+             torch.from_numpy(u64).to(dev),
+             torch.from_numpy(bits).to(dev)])
+
+
+@pytest.mark.parametrize("fn,plain", [(compact_u64, compact_u64_plain),
+                                      (compact_split, compact_split_plain)],
+                         ids=["compact_u64", "compact_split"])
+@pytest.mark.parametrize("n", [1024, 4096, 1 << 20, 4_097 * 1024])
+@pytest.mark.parametrize("sel", [0.0, 0.25, 0.5, 1.0])
+def test_u64_compaction_kernels_match_plain(cuda, fn, plain, n, sel):
+    mask, cols = _u64_inputs(n, sel, n + int(sel * 100), cuda)
+    before = fn.launches
+    outs, count = fn(mask, cols)
+    torch.cuda.synchronize()
+    assert fn.launches > before
+    pouts, pcount = plain(mask, cols)
+    k = int(pcount)
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == k
+    ref, _ = compact(mask, [c.view(torch.int64) for c in cols])
+    for o, p, c, r in zip(outs, pouts, cols, ref):
+        assert o.shape == (n + 1024,) and o.dtype == c.dtype
+        assert torch.equal(o.view(torch.int64)[:k], p.view(torch.int64)[:k])
+        assert torch.equal(o.view(torch.int64)[:k], r[:k])
+
+
+def test_probes_on_card_are_ok(cuda):
+    before = dict(run_probe.launches)
+    report = run_probes(cuda)
+    assert report and all(v == "OK" for v in report.values()), report
+    assert all(run_probe.launches[name] == before[name] + 1
+               for name in before)

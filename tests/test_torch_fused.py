@@ -7,7 +7,12 @@ fused_ops.py), held against the JAX package on the same seeded inputs:
 - against the JAX Pallas kernel ``compact_fused`` in interpret mode: keys
   and count exact, the projection within a relative 1e-13, because that
   kernel computes in float-float (two f32), not IEEE f64.
+
+The JAX answers are computed once, on a thread pool (fixture
+``jax_results``), so that the compiles of independent calls overlap.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pyarrow as pa
@@ -43,19 +48,65 @@ def _vthr(sel):
 
 # the last threshold has a negative low word, the packing trap of the
 # TPU kernel's int32 parameters; the port passes it as one int64
-@pytest.mark.parametrize("thresh,vthr", [(0.0, _vthr(0.25)),
-                                         (0.0, _vthr(0.5)),
-                                         (-0.5, -(1 << 31) - 5),
-                                         (0.3, 1 << 29)])
-def test_plain_matches_jax_engine_filter_project(thresh, vthr):
-    key, v, f = _data(3001, seed=abs(vthr) % 97)
+ENGINE_CASES = [(0.0, _vthr(0.25)), (0.0, _vthr(0.5)),
+                (-0.5, -(1 << 31) - 5), (0.3, 1 << 29)]
+KERNEL_SELS = [0.25, 0.5]
+ROWS = 8   # the Pallas kernel's tile rows
+
+
+def _engine_data(vthr):
+    return _data(3001, seed=abs(vthr) % 97)
+
+
+def _jax_engine(thresh, vthr):
+    key, v, f = _engine_data(vthr)
     jb = a1t.record_batch(pa.record_batch({"key": key, "v": v, "f": f}))
     mask = ((a1t.field("f") > thresh) & (a1t.field("v") > vthr)).execute(jb)
     kept = ac.filter(jb, mask)
     jproj = (a1t.field("v") * 2.0 + a1t.field("f")).execute(kept)
-    want_key = np.asarray(kept["key"].data)
-    want_proj = np.asarray(jproj.data)
+    return np.asarray(kept["key"].data), np.asarray(jproj.data)
 
+
+def _kernel_data(sel):
+    return _data(4 * ROWS * 128, seed=int(sel * 100))
+
+
+def _jax_kernel(sel):
+    key, v, f = _kernel_data(sel)
+    fh, fl = np_dd_split(f)
+    planes = tuple(jnp.asarray(x) for x in (
+        (key & 0xFFFFFFFF).astype(np.uint32).view(np.int32).copy(),
+        (key >> 32).astype(np.int32),
+        (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32).copy(),
+        (v >> 32).astype(np.int32),
+        fh.view(np.int32).copy(), fl.view(np.int32).copy()))
+    (oklo, okhi, oph, opl), jcount, ovf = compact_fused(
+        planes, flagship_filter_project, 4,
+        params=_v15_params(_vthr(sel), 0.0), interpret=True, rows=ROWS,
+        band=ROWS + 9)
+    jk = int(jcount)
+    jkey = (np.asarray(okhi[:jk]).astype(np.int64) << 32) | \
+        np.asarray(oklo[:jk]).view(np.uint32).astype(np.int64)
+    jproj = (np.asarray(oph[:jk]).view(np.float32).astype(np.float64)
+             + np.asarray(opl[:jk]).view(np.float32).astype(np.float64))
+    return bool(ovf), jkey, jproj
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    """Every JAX answer the tests compare against, computed once."""
+    calls = {("engine",) + c: (_jax_engine, c) for c in ENGINE_CASES}
+    calls.update({("kernel", sel): (_jax_kernel, (sel,))
+                  for sel in KERNEL_SELS})
+    with ThreadPoolExecutor(len(calls)) as ex:
+        futs = {k: ex.submit(fn, *args) for k, (fn, args) in calls.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.mark.parametrize("thresh,vthr", ENGINE_CASES)
+def test_plain_matches_jax_engine_filter_project(thresh, vthr, jax_results):
+    key, v, f = _engine_data(vthr)
+    want_key, want_proj = jax_results[("engine", thresh, vthr)]
     kout, pout, count = filter_project_flagship(
         torch.from_numpy(key), torch.from_numpy(v), torch.from_numpy(f),
         thresh, vthr)
@@ -92,34 +143,16 @@ def _v15_params(vthr, thresh):
         np.int64).astype(np.uint32).view(np.int32))
 
 
-@pytest.mark.parametrize("sel", [0.25, 0.5])
-def test_plain_matches_jax_fused_kernel(sel):
-    rows = 8
-    n = 4 * rows * 128
-    key, v, f = _data(n, seed=int(sel * 100))
-    vthr = _vthr(sel)
-    fh, fl = np_dd_split(f)
-    planes = tuple(jnp.asarray(x) for x in (
-        (key & 0xFFFFFFFF).astype(np.uint32).view(np.int32).copy(),
-        (key >> 32).astype(np.int32),
-        (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32).copy(),
-        (v >> 32).astype(np.int32),
-        fh.view(np.int32).copy(), fl.view(np.int32).copy()))
-    (oklo, okhi, oph, opl), jcount, ovf = compact_fused(
-        planes, flagship_filter_project, 4, params=_v15_params(vthr, 0.0),
-        interpret=True, rows=rows, band=rows + 9)
-    assert not bool(ovf)
-    jk = int(jcount)
-    jkey = (np.asarray(okhi[:jk]).astype(np.int64) << 32) | \
-        np.asarray(oklo[:jk]).view(np.uint32).astype(np.int64)
-    jproj = (np.asarray(oph[:jk]).view(np.float32).astype(np.float64)
-             + np.asarray(opl[:jk]).view(np.float32).astype(np.float64))
-
+@pytest.mark.parametrize("sel", KERNEL_SELS)
+def test_plain_matches_jax_fused_kernel(sel, jax_results):
+    key, v, f = _kernel_data(sel)
+    ovf, jkey, jproj = jax_results[("kernel", sel)]
+    assert not ovf
     kout, pout, count = filter_project_flagship(
         torch.from_numpy(key), torch.from_numpy(v), torch.from_numpy(f),
-        0.0, vthr)
+        0.0, _vthr(sel))
     k = int(count)
-    assert k == jk
+    assert k == len(jkey)
     np.testing.assert_array_equal(kout.numpy()[:k], jkey)
     np.testing.assert_allclose(pout.numpy()[:k], jproj, rtol=1e-13, atol=0)
 

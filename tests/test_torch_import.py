@@ -8,13 +8,15 @@ import subprocess
 import sys
 
 import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
 import arrow1_tpu_torch as pt
 from arrow1_tpu_torch import dtypes as dt
 from arrow1_tpu_torch.errors import NotImplementedError_
-from arrow1_tpu_torch.kernels import build
+from arrow1_tpu_torch.kernels import (build, compaction, compaction_split,
+                                     probes)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "arrow1_tpu_torch").rglob("*.py")) + \
@@ -40,6 +42,13 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.ops.dictionary\n"
             "import arrow1_tpu_torch.ops.join\n"
             "import arrow1_tpu_torch.ops.sort\n"
+            "import arrow1_tpu_torch.acero\n"
+            "import arrow1_tpu_torch.query\n"
+            "import arrow1_tpu_torch.exec.plan\n"
+            "import arrow1_tpu_torch.exec.streaming\n"
+            "import arrow1_tpu_torch.models\n"
+            "import arrow1_tpu_torch.kernels.compaction_split\n"
+            "import arrow1_tpu_torch.kernels.probes\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -90,7 +99,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pt.PipelineBuilder().join(build, "k").compile()(data)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.broadcast_probe(x, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.table(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.interop.table_from_arrow(pa.table(data))
+    # the query layer runs where its source's tensors are: a source made
+    # without naming the CPU wants CUDA
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.query(pt.table(data)).to_table()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.acero.Declaration("table_source", pt.acero.TableSourceNodeOptions(
+            pt.table(data))).to_table()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.exec.plan.source_node(pt.exec.ExecPlan(),
+                                 pt.table(data).batches)
+    mask = np.ones(1024, bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compaction.compact_u64(mask, [np.zeros(1024, np.int64)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compaction_split.compact_split(mask, [np.zeros(1024, np.int64)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probes.run_probes()
     assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
+    t = pt.table(data, device="cpu")
+    assert pt.query(t).to_table().batches[0]["k"].device.type == "cpu"
 
 
 def test_later_slice_types_raise():
