@@ -1,21 +1,19 @@
-// The feature-probe matrix: six small kernels, each the Hopper form of one
-// of the Mosaic features that the JAX package's probe matrix exercises.
+// The feature-probe matrix: small kernels, each the Hopper form of one of
+// the Mosaic features that the JAX package's probe matrix exercises. Four
+// are here, behind a plain C interface; smem-output and blocked-2d are in
+// probe_ops.cu, launched by PyTorch operators (probe_ops.cpp).
 //
-// Replaces the six pallas_calls of arrow1_tpu/kernels/tpu_probes.py
+// Replaces four pallas_calls of arrow1_tpu/kernels/tpu_probes.py
 // (run_probes). Each computes what its TPU probe computes, with the
 // mechanism that corresponds to the probed feature:
 //
 //   blocked-1d         2 * x over 1-D blocks of 1024: one block per block;
-//   blocked-2d         2 * x over [8, 128] tiles: one block per tile,
-//                      2-D thread indices;
 //   manual-dma-matmul  per row, the inclusive count of odd values (the
 //                      TPU's (x % 2) @ upper-triangular product): the tile
 //                      arrives in shared memory by cp.async (the TPU's
 //                      manual DMA), one warp scans each row, and the tile
 //                      leaves from shared memory;
 //   cumsum-1d          inclusive int32 cumsum: one block, a block scan;
-//   smem-output        sum(x) into a 1-element output: one block, a block
-//                      reduction;
 //   dma-in-when        cp.async of each [8, 128] tile into shared memory,
 //                      stored to the output only on even tiles (the TPU's
 //                      DMA under pl.when).
@@ -41,14 +39,6 @@ __global__ void __launch_bounds__(kBlock)
 double_1d_kernel(const int* __restrict__ x, int* __restrict__ o) {
   const long long i = static_cast<long long>(blockIdx.x) * kBlock +
                       threadIdx.x;
-  o[i] = 2 * x[i];
-}
-
-__global__ void __launch_bounds__(kTileElems)
-double_2d_kernel(const int* __restrict__ x, int* __restrict__ o) {
-  const long long r = static_cast<long long>(blockIdx.x) * kRows +
-                      threadIdx.y;
-  const long long i = r * kLanes + threadIdx.x;
   o[i] = 2 * x[i];
 }
 
@@ -142,23 +132,6 @@ cumsum_kernel(const int* __restrict__ x, long long n, int* __restrict__ o) {
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-sum_kernel(const int* __restrict__ x, long long n, int* __restrict__ o) {
-  __shared__ int warp_sum[kBlock / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int s = 0;  // int32 arithmetic wraps, as the TPU's int32 sum does
-  for (long long i = threadIdx.x; i < n; i += kBlock) s += x[i];
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFullWarp, s, d);
-  if (lane == 0) warp_sum[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    s = warp_sum[lane];
-    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFullWarp, s, d);
-    if (lane == 0) o[0] = s;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -171,18 +144,6 @@ extern "C" {
 int a1t_probe_blocked_1d(const void* x, int64_t n, void* o, void* stream) {
   if (n <= 0 || n % kBlock) return static_cast<int>(cudaErrorInvalidValue);
   double_1d_kernel<<<static_cast<unsigned>(n / kBlock), kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(o));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int a1t_probe_blocked_2d(const void* x, int64_t rows, void* o,
-                         void* stream) {
-  if (rows <= 0 || rows % kRows) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  double_2d_kernel<<<static_cast<unsigned>(rows / kRows),
-                     dim3(kLanes, kRows), 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), static_cast<int*>(o));
   return static_cast<int>(cudaGetLastError());
@@ -202,13 +163,6 @@ int a1t_probe_dma_matmul(const void* x, int64_t rows, void* o,
 int a1t_probe_cumsum_1d(const void* x, int64_t n, void* o, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cumsum_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), n, static_cast<int*>(o));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int a1t_probe_smem_output(const void* x, int64_t n, void* o, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  sum_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), n, static_cast<int*>(o));
   return static_cast<int>(cudaGetLastError());
 }

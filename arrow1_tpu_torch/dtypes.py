@@ -21,7 +21,8 @@ from .errors import NotImplementedError_
 __all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
            "uint16", "uint32", "uint64", "float16", "float32", "float64",
            "string", "large_string", "binary", "large_binary", "dictionary",
-           "from_numpy_dtype", "from_arrow", "to_arrow"]
+           "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
+           "from_int64"]
 
 _PHYS = {
     "bool": torch.bool,
@@ -165,3 +166,30 @@ def to_arrow(t: DataType):
     if t.is_dictionary:
         return pa.dictionary(to_arrow(t.index_type), to_arrow(t.value_type))
     return getattr(pa, "bool_" if t.kind == "bool" else t.kind)()
+
+
+# uint16/32/64 -> the signed type of their width, for bit views: torch
+# converts and computes little in the unsigned ones, on either device
+_SIGNED_OF = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}
+
+
+def as_int64(x: torch.Tensor) -> torch.Tensor:
+    """Integers and bools widened to int64: signed types sign-extend,
+    unsigned ones zero-extend, and uint64 keeps its bits."""
+    signed = _SIGNED_OF.get(x.dtype)
+    if signed is None:
+        return x.to(torch.int64)
+    if signed == torch.int64:
+        return x.view(torch.int64)
+    return x.view(signed).to(torch.int64) & ((1 << 8 * x.element_size()) - 1)
+
+
+def from_int64(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``as_int64`` for an unsigned ``dtype``: int64 values in
+    its range (uint64: any bit pattern) back to its storage."""
+    signed = _SIGNED_OF[dtype]
+    if signed != torch.int64:
+        bits = 8 * dtype.itemsize
+        x = torch.where(x >= 1 << (bits - 1), x - (1 << bits), x)
+    return x.to(signed).view(dtype)

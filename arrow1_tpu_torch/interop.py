@@ -17,6 +17,7 @@ import torch
 
 from . import dtypes as dt
 from .column import Column, Dictionary
+from .device import resolve_device
 from .table import RecordBatch, Table
 
 __all__ = ["column_from_numpy", "column_from_arrow", "column_to_arrow",
@@ -48,11 +49,13 @@ def _dictionary_encode(values: np.ndarray, valid: np.ndarray):
 
 
 def column_from_numpy(values, validity: Optional[np.ndarray] = None,
-                      device="cpu", dictionary=None) -> Column:
-    """A numpy array (or list, or pyarrow array) -> Column on ``device``.
+                      device=None, dictionary=None) -> Column:
+    """A numpy array (or list, or pyarrow array) -> Column on ``device``
+    (CUDA unless the caller names another).
 
     Object/str arrays are dictionary-encoded, with None as null. With
     ``dictionary`` given, ``values`` are already codes into it."""
+    device = resolve_device(device)
     if not isinstance(values, (np.ndarray, list, tuple)):
         return column_from_arrow(values, device=device)
     arr = np.asarray(values)
@@ -79,11 +82,13 @@ def column_from_numpy(values, validity: Optional[np.ndarray] = None,
                   else _to_device(valid, device))
 
 
-def column_from_arrow(arr, device="cpu") -> Column:
-    """pyarrow Array/ChunkedArray -> Column on ``device``."""
+def column_from_arrow(arr, device=None) -> Column:
+    """pyarrow Array/ChunkedArray -> Column on ``device`` (CUDA unless the
+    caller names another)."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
+    device = resolve_device(device)
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     t = dt.from_arrow(arr.type)
@@ -114,7 +119,11 @@ def column_to_arrow(col: Column):
     if col.validity is not None:
         mask = ~col.validity.cpu().numpy()
     if col.dtype.is_binary:
-        vals = col.dictionary.values[col.data.cpu().numpy()]
+        # a null slot's code is not read: it need not index the pool
+        codes = col.data.cpu().numpy()
+        vals = np.full(len(codes), None, dtype=object)
+        keep = slice(None) if mask is None else ~mask
+        vals[keep] = col.dictionary.values[codes[keep]]
         return pa.array(vals.tolist(), type=dt.to_arrow(col.dtype),
                         mask=mask)
     if col.dtype.is_dictionary:
@@ -128,10 +137,12 @@ def column_to_arrow(col: Column):
                     mask=mask)
 
 
-def record_batch_from_arrow(batch, device="cpu") -> RecordBatch:
-    """pyarrow RecordBatch/Table -> RecordBatch on ``device``."""
+def record_batch_from_arrow(batch, device=None) -> RecordBatch:
+    """pyarrow RecordBatch/Table -> RecordBatch on ``device`` (CUDA unless
+    the caller names another)."""
     import pyarrow as pa
 
+    device = resolve_device(device)
     if isinstance(batch, pa.Table):
         batch = batch.combine_chunks()
     cols = tuple(column_from_arrow(batch.column(i), device=device)
@@ -151,8 +162,6 @@ def table_from_arrow(table, device=None) -> Table:
     names another), one RecordBatch per pyarrow record batch (each string
     column gets its own value pool)."""
     import pyarrow as pa
-
-    from .device import resolve_device
 
     device = resolve_device(device)
     batches = table.to_batches()

@@ -3,10 +3,15 @@ arrow1_tpu/kernels/tpu_probes.py). Run it on a GPU:
 
     python -m arrow1_tpu_torch.kernels.probes
 
-Each probe launches one small kernel of ``csrc/probes.cu`` on the
-reference's inputs (``x1 = arange(4096)`` int32, ``x2 = arange(4096)``
-as [32, 128]) and compares its output with the probe's plain PyTorch
-version. The report is the reference's: probe name -> "OK", or
+Each probe launches one small kernel on the reference's inputs
+(``x1 = arange(4096)`` int32, ``x2 = arange(4096)`` as [32, 128]) and
+compares its output with the probe's plain PyTorch version. Four probes
+are C functions of ``csrc/probes.cu``, called through ctypes. smem-output
+and blocked-2d are operators of PyTorch's dispatcher
+(``torch.ops.a1t.probe_smem_output``, ``probe_blocked_2d``; host code
+``csrc/probe_ops.cpp``, kernels ``csrc/probe_ops.cu``), which check,
+allocate and launch in C++: a call costs about what one PyTorch call
+does. The report is the reference's: probe name -> "OK", or
 "FAIL: <message>"; "OK" means the kernel launched and its output equals
 the plain version's. The two bitcast probes of the reference are
 ``jax.jit`` programs, not kernels; here they are ``Tensor.view``s,
@@ -24,21 +29,24 @@ import torch
 
 from . import build
 
-__all__ = ["PROBES", "probe_inputs", "plain", "run_probe", "run_probes",
-           "SOURCE"]
+__all__ = ["PROBES", "OPERATORS", "probe_inputs", "plain", "run_probe",
+           "run_probes", "SOURCE"]
 
 SOURCE = "probes.cu"
 R, L, T = 8, 128, 1024   # a 2-D tile is [R, L]; a 1-D block is T
 
-# probe name -> (C entry point, its input: "x1" or "x2")
+# probe name -> (its entry point, its input: "x1" or "x2"); an entry is a
+# C function of probes.cu, or, for the names in OPERATORS, an operator in
+# torch.ops.a1t
 PROBES = {
     "blocked-1d": ("a1t_probe_blocked_1d", "x1"),
-    "blocked-2d": ("a1t_probe_blocked_2d", "x2"),
+    "blocked-2d": ("probe_blocked_2d", "x2"),
     "manual-dma-matmul": ("a1t_probe_dma_matmul", "x2"),
     "cumsum-1d": ("a1t_probe_cumsum_1d", "x1"),
-    "smem-output": ("a1t_probe_smem_output", "x1"),
+    "smem-output": ("probe_smem_output", "x1"),
     "dma-in-when": ("a1t_probe_dma_in_when", "x2"),
 }
+OPERATORS = ("blocked-2d", "smem-output")
 
 
 def probe_inputs(device) -> Dict[str, torch.Tensor]:
@@ -79,7 +87,9 @@ def plain(name: str, x: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     lib = build.load(SOURCE)
-    for entry, _ in PROBES.values():
+    for name, (entry, _) in PROBES.items():
+        if name in OPERATORS:
+            continue
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                        ctypes.c_void_p]
@@ -87,10 +97,22 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _operators() -> Dict[str, Callable[[torch.Tensor], torch.Tensor]]:
+    build.load_ops()
+    return {name: getattr(torch.ops.a1t, PROBES[name][0]).default
+            for name in OPERATORS}
+
+
 def run_probe(name: str, x: torch.Tensor) -> torch.Tensor:
     """Launch probe ``name``'s kernel on the int32 tensor ``x`` (CUDA) and
     return its output; a CPU tensor runs the plain version. Counts the
     kernel's launches in ``run_probe.launches[name]``."""
+    if x.is_cuda and name in OPERATORS:
+        # the operator checks the input as below, in C++, and raises
+        out = _operators()[name](x)
+        run_probe.launches[name] += 1
+        return out
     entry, kind = PROBES[name]
     if x.dtype != torch.int32:
         raise TypeError(f"probe {name}: int32 input expected, got {x.dtype}")
@@ -107,9 +129,7 @@ def run_probe(name: str, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     if x.data_ptr() % 16:   # the 2-D probes copy 16 bytes a thread
         x = x.clone()
-    if name == "smem-output":
-        out = torch.empty(1, dtype=torch.int32, device=x.device)
-    elif name == "dma-in-when":
+    if name == "dma-in-when":
         # odd tiles are never written: they keep these zeros
         out = torch.zeros_like(x)
     else:

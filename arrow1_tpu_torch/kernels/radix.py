@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from ..column import Column
-from ..errors import Invalid, NotImplementedError_
+from ..dtypes import as_int64, from_int64
+from ..errors import Invalid
 
 __all__ = ["minimal_sort_keys", "pack_operands",
            "pack_layout", "decode_packed_key", "sort_key_decodable",
@@ -91,10 +92,7 @@ def minimal_sort_keys(col: Column, order: str = "ascending",
         key, kbits = col.data.to(torch.int64), 1
     elif t.is_unsigned_integer:
         kbits = 8 * col.data.element_size()
-        if kbits >= 64:
-            raise NotImplementedError_("sorting uint64 keys is not ported "
-                                       "yet (registry slice)")
-        key = col.data.to(torch.int64)
+        key = as_int64(col.data)   # uint64: its bits are its unsigned key
     elif t.is_signed_integer:
         kbits = 8 * col.data.element_size()
         if kbits >= 64:
@@ -217,6 +215,8 @@ def decode_packed_key(col: Column, vals: Sequence[torch.Tensor],
         return v != 0, validity
     if t.is_signed_integer:
         v = v ^ _SIGN if kbits >= 64 else v - (1 << (kbits - 1))
+    elif col.data.dtype != torch.uint8:
+        return from_int64(v, col.data.dtype), validity
     return v.to(col.data.dtype), validity
 
 

@@ -209,14 +209,19 @@ def _min_max_exec(args, options: ScalarAggregateOptions, ctx):
         lo = inv[torch.where(m, r, big).min()]
         hi = inv[torch.where(m, r, -1).max()]
     elif t.is_floating:
-        # NaN is skipped unless every valid value is NaN (numpy nanmin)
-        ok = m & ~torch.isnan(col.data)
-        nan = torch.tensor(float("nan"), dtype=col.data.dtype,
-                           device=col.device)
-        lo = torch.where(ok.any(), torch.where(ok, col.data, float("inf"))
-                         .min(), nan)
-        hi = torch.where(ok.any(), torch.where(ok, col.data, float("-inf"))
-                         .max(), nan)
+        # NaN is skipped unless every valid value is NaN (numpy nanmin).
+        # Of values that tie (-0.0 and +0.0) the first is taken, as
+        # pyarrow does
+        x = col.data
+        ok = m & ~torch.isnan(x)
+        nan = torch.tensor(float("nan"), dtype=x.dtype, device=col.device)
+
+        def first_of(extreme):
+            first = torch.argmax((ok & (x == extreme)).to(torch.uint8))
+            return torch.where(ok.any(), x[first], nan)
+
+        lo = first_of(torch.where(ok, x, float("inf")).min())
+        hi = first_of(torch.where(ok, x, float("-inf")).max())
     elif t.is_boolean:
         lo = torch.where(m, col.data, True).all()
         hi = torch.where(m, col.data, False).any()

@@ -10,12 +10,13 @@ import torch
 from .. import dtypes as dt
 from ..column import Column
 from ..datum import Scalar
+from ..dtypes import as_int64, from_int64
 from ..errors import Invalid
 from ..kernels.radix import _SIGN
 
 __all__ = ["collapse_validity", "promote_numeric", "common_type", "unpack",
            "intersect_validity", "result_column", "value_of",
-           "broadcast_length", "column_device", "as_int64",
+           "broadcast_length", "column_device", "as_int64", "from_int64",
            "minmax_domain"]
 
 _FLOAT_ORDER = {"float16": 0, "float32": 1, "float64": 2}
@@ -117,13 +118,6 @@ def result_column(data, out_type: dt.DataType, validity, n: Optional[int],
     return Column(data, out_type, validity=validity, dictionary=dictionary)
 
 
-def as_int64(x: torch.Tensor) -> torch.Tensor:
-    """Integers and bools widened to int64: signed types sign-extend,
-    unsigned ones zero-extend, and uint64 keeps its bits."""
-    return x.view(torch.int64) if x.dtype == torch.uint64 else \
-        x.to(torch.int64)
-
-
 def minmax_domain(x: torch.Tensor):
     """(y, back): y orders like x under torch's min/max and compares,
     back(y') restores x's dtype. torch on the CPU has no compare, min or
@@ -133,7 +127,7 @@ def minmax_domain(x: torch.Tensor):
         return (x.view(torch.int64) ^ _SIGN,
                 lambda y: (y ^ _SIGN).view(torch.uint64))
     if x.dtype in (torch.uint16, torch.uint32):
-        return x.to(torch.int64), lambda y, d=x.dtype: y.to(d)
+        return as_int64(x), lambda y, d=x.dtype: from_int64(y, d)
     return x, lambda y: y
 
 

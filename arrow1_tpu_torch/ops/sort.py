@@ -116,7 +116,7 @@ def _radix_perm(cols_orders) -> torch.Tensor:
 
 
 def _as_indices(perm: torch.Tensor) -> Column:
-    return Column(perm.to(torch.uint64), dt.uint64)
+    return Column(perm.view(torch.uint64), dt.uint64)   # perm >= 0
 
 
 def _array_sort_indices_exec(args, options: ArraySortOptions, ctx):

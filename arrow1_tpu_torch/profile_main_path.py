@@ -209,7 +209,9 @@ def q3_pipeline(orders):
             .compile())
 
 
-def _device_us(evt) -> float:
+def event_device_us(evt) -> float:
+    """Device time (us) of one of torch.profiler's averaged records, under
+    the attribute name of the installed torch."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
@@ -239,18 +241,18 @@ def profile(label: str, fn, runs: int = 3, top: int = 12) -> None:
     # kernel records only: an operator's record repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and _device_us(e) > 0]
+              and event_device_us(e) > 0]
     if not events:
         print(f"== {label}: wall {wall:.3f} ms per run (median of 5); the "
               "profiler recorded no device time: busy and idle share not "
               "measured")
         return
-    busy_ms = sum(_device_us(e) for e in events) / 1e3 / runs
+    busy_ms = sum(event_device_us(e) for e in events) / 1e3 / runs
     print(f"== {label}: wall {wall:.3f} ms per run (median of 5); "
           f"device busy {busy_ms:.3f} ms per run (torch.profiler); "
           f"idle share {max(0.0, 1 - busy_ms / wall):.1%}")
-    for e in sorted(events, key=_device_us, reverse=True)[:top]:
-        ms = _device_us(e) / 1e3 / runs
+    for e in sorted(events, key=event_device_us, reverse=True)[:top]:
+        ms = event_device_us(e) / 1e3 / runs
         print(f"   {ms:9.4f} ms {ms / busy_ms:6.1%} x{e.count // runs:<3d} "
               f"{e.key[:100]}")
 

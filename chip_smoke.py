@@ -5,7 +5,8 @@ NVIDIA GPU. Run it from the root of a checkout:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from arrow1_tpu_torch/csrc (one nvcc per
-source, all at once), then:
+library, all at once: one per ctypes source, and the operator library of
+probe_ops.cu and probe_ops.cpp), then:
 
 1. prints the card's name and power limit (nvidia-smi) and the build time;
 2. holds the compaction kernel (K2) against its plain PyTorch version,
@@ -69,8 +70,12 @@ source, all at once), then:
    versions and boolean-mask indexing;
 11. runs the probe matrix (kernels/probes.py) on the card: every probe
    must read OK (its kernel launched once and equals its plain version);
-   each probe's kernel, plain version and, where one PyTorch call
-   computes the same output, library call are timed;
+   smem-output and blocked-2d go through their PyTorch operators
+   (torch.ops.a1t), the other four through ctypes. Each probe's kernel
+   and, where one PyTorch call computes the same output, library call are
+   timed in turns (CUDA events, median of PROBE_RUNS), the plain version
+   alone, and each with its host time per call (HOST_CALLS back-to-back
+   calls, one synchronise);
 12. drives the query layer at TPC-H SF10 cardinalities (59,986,052 line
    items in 2^20-row batches, 15M orders, 1.5M customers): Q1, Q3, Q5 and
    Q6 through query() (models.tpch), Q1 as an acero Declaration and Q3
@@ -83,7 +88,16 @@ source, all at once), then:
    (dictionary string ascending, int64 with 1% nulls descending); checks
    on the card that the output is a permutation of the input rows,
    sorted, and stable; prints the wall time (median of 3) and peak
-   device memory.
+   device memory;
+14. takes each probe's and library call's device time per call from
+   torch.profiler's kernel records (PROFILE_CALLS calls), last, because
+   the profiler's CUDA tracing may stay attached to the process and slow
+   the launches after it; the operator probes must show their a1t::
+   operator in the profile.
+
+Every kernel wrapper of phases 3-10 also gets its host time per call
+(HOST_CALLS back-to-back calls, one synchronise); where the card cannot
+keep up, that is the card's time.
 
 The line before the last is a JSON object with one entry per kernel
 (time, bound, plain and library times, launches, error; each of the six
@@ -104,6 +118,9 @@ import torch
 DEVICE = "cuda:0"   # one card
 N_BIG = 10_000_000
 RUNS = 20
+PROBE_RUNS = 200      # event timings of the probes, whose medians move more
+PROFILE_CALLS = 200   # calls under torch.profiler for device time per call
+HOST_CALLS = 1000     # back-to-back calls for host time per call
 K4_TS = (256, 1024, 2048)
 K4_N = 10_000_000 // 16384 * 16384   # benchmarks/r2: 9,994,240 probes
 JOIN_SLICE = 1_000_000               # probe rows checked row for row
@@ -165,6 +182,72 @@ def _time_ms(fn, runs=RUNS, warmup=3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def _host_us(fn, calls=HOST_CALLS) -> float:
+    """Time per call, in us, of ``calls`` back-to-back calls with one
+    synchronise at the end (after a warm-up): the host's cost of a call
+    where the card keeps up with it, the card's time where it does not."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.3f} us"
+
+
+def _device_us(fn, calls=PROFILE_CALLS):
+    """(device time per call in us, names of the kernels, names of the
+    operators called) from torch.profiler's records over ``calls`` calls
+    after a warm-up; the time is None when the profiler recorded no
+    device time."""
+    from arrow1_tpu_torch.profile_main_path import event_device_us
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    ops = {e.key for e in averages}
+    kernels = [e for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and event_device_us(e) > 0]
+    if not kernels:
+        return None, [], ops
+    return (sum(event_device_us(e) for e in kernels) / calls,
+            sorted({e.key[:60] for e in kernels}), ops)
+
+
+def _time_pair_ms(fn_a, fn_b, runs=PROBE_RUNS, warmup=3):
+    """Medians of per-call CUDA-event times of two functions called in
+    turns (a b, b a, a b, ...), so that both meet the same host."""
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    ev = {fn: [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+          for fn in (fn_a, fn_b)}
+    for i in range(runs):
+        for fn in ((fn_a, fn_b) if i % 2 == 0 else (fn_b, fn_a)):
+            start, end = ev[fn][i]
+            start.record()
+            fn()
+            end.record()
+    torch.cuda.synchronize()
+    return tuple(statistics.median(s.elapsed_time(e) for s, e in ev[fn])
+                 for fn in (fn_a, fn_b))
 
 
 class _Recorder:
@@ -281,7 +364,12 @@ def phase_fused(fused, dev, peak):
               f"{ms:.4f} ms = {N_BIG / ms * 1e3:.4g} rows/s, "
               f"{nbytes / ms * 1e3:.4g} B/s = {bound / ms:.1%} of HBM; "
               f"plain {plain_ms:.4f} ms", flush=True)
-        rows[sel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        host = _host_us(lambda: fused.filter_project_flagship(
+            key, v, f, 0.0, vthr))
+        print(f"K1 flagship 10M sel {sel}: host {host:.2f} us per call "
+              f"({HOST_CALLS} back to back)", flush=True)
+        rows[sel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         host_us=host)
     return err, rows
 
 
@@ -394,8 +482,11 @@ def phase_segment_sums(segsum2, dev, peak):
               f"bincount+index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
               f"({bound / ms:.1%} of the HBM bound)", flush=True)
         if G == 1024:
+            host = _host_us(lambda: segsum2.segment_sums(gid, cols, G))
+            print(f"K3 segment_sums G={G}: host {host:.2f} us per call "
+                  f"({HOST_CALLS} back to back)", flush=True)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound)
+                       bound_ms=bound, host_us=host)
     return err, row
 
 
@@ -442,8 +533,11 @@ def phase_segment_sum_count(segsum, dev, peak):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_+bincount "
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of the "
           "HBM bound)", flush=True)
+    host = _host_us(lambda: segsum.segment_sum_count(gid, val, live, G))
+    print(f"v1 segment_sum_count G={G}: host {host:.2f} us per call "
+          f"({HOST_CALLS} back to back)", flush=True)
     return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bound)
+                     bound_ms=bound, host_us=host)
 
 
 DENSE_AGGS = [("v", "sum"), ("v", "mean"), ("w", "count"), ("w", "sum")]
@@ -622,8 +716,10 @@ def phase_broadcast_probe(pt, ht, padded, dev, peak, counted):
                      f"searchsorted x2 {lib_ms:.4f} ms, bound {bound:.4f} "
                      f"ms ({bound / ms:.1%} of the HBM bound)")
             if T == 2048:
+                host = _host_us(lambda: ht.broadcast_probe(build, probe))
+                line += f"; host {host:.2f} us per call"
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound)
+                           bound_ms=bound, host_us=host)
         print(line, flush=True)
     return launches, err, row
 
@@ -913,10 +1009,12 @@ def phase_u64_compaction(pt_kernels, dev, peak):
     for name, (fn, plain) in kernels.items():
         ms = _time_ms(lambda: fn(mask, cols))
         plain_ms = _time_ms(lambda: plain(mask, cols))
+        host = _host_us(lambda: fn(mask, cols))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound)
+                          bound_ms=bound, host_us=host)
         print(f"{name} n={n} x (i64,i64,f64) sel 0.5 (kept {k}): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, mask indexing "
+              f"{ms:.4f} ms (host {host:.2f} us per call), plain "
+              f"{plain_ms:.4f} ms, mask indexing "
               f"{lib_ms:.4f} ms, K2 compact {k2_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({bound / ms:.1%} of the HBM bound)",
               flush=True)
@@ -939,11 +1037,13 @@ PROBE_LINES = {"blocked-1d": 41, "blocked-2d": 50, "manual-dma-matmul": 75,
                "cumsum-1d": 90, "smem-output": 100, "dma-in-when": 120}
 
 
-def phase_probes(dev, peak):
+def phase_probes(dev, peak, device_calls):
     """The probe matrix on the card (counted); every probe must read OK.
     Returns (launches, errors, rows), each keyed by probe name. A probe's
     library call is the one PyTorch call that computes its output (none
-    for manual-dma-matmul and dma-in-when, which take two)."""
+    for manual-dma-matmul and dma-in-when, which take two); the two are
+    timed in turns. Puts each probe's (call, library call) into
+    ``device_calls`` for ``phase_probe_device_times``."""
     from arrow1_tpu_torch.kernels import probes
 
     torch.cuda.synchronize()
@@ -969,18 +1069,57 @@ def phase_probes(dev, peak):
             raise AssertionError(f"probe {name}: differs from its plain "
                                  "version")
         lib = libraries.get(name)
-        rows[name] = dict(
-            ms=_time_ms(lambda: probes.run_probe(name, x)),
-            plain_ms=_time_ms(lambda: probes.plain(name, x)),
+        run = (lambda name=name, x=x: probes.run_probe(name, x))
+        r = rows[name] = dict(
             bound_ms=(x.numel() * 4 + got.numel() * 4) / peak * 1e3,
-            library_ms=None if lib is None else _time_ms(lambda: lib(x)))
-        r = rows[name]
-        lib_text = "" if lib is None else \
-            f", library {r['library_ms'] * 1e3:.2f} us"
-        print(f"probe {name}: OK; kernel {r['ms'] * 1e3:.2f} us, plain "
-              f"{r['plain_ms'] * 1e3:.2f} us{lib_text}, bound "
+            plain_ms=_time_ms(lambda: probes.plain(name, x),
+                              runs=PROBE_RUNS),
+            launch_path=("dispatcher" if name in probes.OPERATORS
+                         else "ctypes"))
+        lib_text = ""
+        if lib is None:
+            r.update(ms=_time_ms(run, runs=PROBE_RUNS), library_ms=None,
+                     host_us=_host_us(run))
+        else:
+            r["ms"], r["library_ms"] = _time_pair_ms(
+                run, lambda lib=lib, x=x: lib(x))
+            r["host_us"] = _host_us(run)
+            r["library_host_us"] = _host_us(lambda: lib(x))
+            lib_text = (f"; library {r['library_ms'] * 1e3:.2f} us "
+                        f"(kernel / library {r['ms'] / r['library_ms']:.3f};"
+                        f" host {r['library_host_us']:.2f} us)")
+        print(f"probe {name}: OK; {r['launch_path']} launch path, kernel "
+              f"{r['ms'] * 1e3:.2f} us (median of {PROBE_RUNS}; host "
+              f"{r['host_us']:.2f} us over {HOST_CALLS} back to back), "
+              f"plain {r['plain_ms'] * 1e3:.2f} us{lib_text}, bound "
               f"{r['bound_ms'] * 1e3:.4f} us", flush=True)
+        device_calls[name] = (run, None if lib is None else
+                              (lambda lib=lib, x=x: lib(x)))
     return launches, errs, rows
+
+
+def phase_probe_device_times(device_calls, rows):
+    """Device time per call of each probe and of its library call, from
+    torch.profiler's kernel records. It runs after every other phase: the
+    profiler's CUDA tracing may stay attached to the process and slow the
+    launches that follow it. Also checks that the operator probes went
+    through the dispatcher: the profiler records their a1t:: operators."""
+    from arrow1_tpu_torch.kernels import probes
+
+    for name, (run, lib) in device_calls.items():
+        r = rows[name]
+        r["device_us"], names, ops = _device_us(run)
+        op = f"a1t::{probes.PROBES[name][0]}"
+        if name in probes.OPERATORS and op not in ops:
+            raise AssertionError(f"probe {name}: the profiler saw no {op} "
+                                 f"call, only {sorted(ops)[:8]}")
+        text = f"probe {name}: device {_us_text(r['device_us'])} ({names})"
+        if lib is not None:
+            r["library_device_us"], lib_names, _ = _device_us(lib)
+            text += (f"; library device {_us_text(r['library_device_us'])} "
+                     f"({lib_names})")
+        print(text + f", by torch.profiler over {PROFILE_CALLS} calls",
+              flush=True)
 
 
 def _sf10_oracles(li, orders, customers):
@@ -1256,12 +1395,12 @@ def main() -> int:
     card = _card_line()
     peak = _peak(name)
     t0 = time.perf_counter()
-    build.build(build.SOURCES)
+    build.build(build.TARGETS)
     build_s = time.perf_counter() - t0
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; HBM peak {peak:.3g} B/s (data sheet); "
           f"kernels built in {build_s:.1f} s", flush=True)
-    for src in build.SOURCES:
+    for src in build.TARGETS:
         log = build.library_path(src).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
             if "registers" in line or "spill" in line:
@@ -1355,10 +1494,17 @@ def main() -> int:
               flush=True)
         if k2_row is None or n * len(cols) >= k2_row["_size"]:
             k2_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound, _size=n * len(cols))
+                          bound_ms=bound, _size=n * len(cols),
+                          _args=(mask, cols, lim))
     if k2_row is None:
         raise AssertionError("the pipeline made no K2 call")
     k2_row.pop("_size")
+    k2_args = k2_row.pop("_args")
+    k2_row["host_us"] = _host_us(lambda: compaction.compact(*k2_args))
+    print(f"K2 on the main path, its largest call: host "
+          f"{k2_row['host_us']:.2f} us per call ({HOST_CALLS} back to back)",
+          flush=True)
+    del k2_args
 
     # ---- phases 5 and 6: group accumulators and the eager group_by ----
     k3_err, k3_row = phase_segment_sums(segsum2, dev, peak)
@@ -1390,7 +1536,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     u64_launches, u64_errs, u64_rows = phase_u64_compaction(pt_kernels, dev,
                                                             peak)
-    probe_launches, probe_errs, probe_rows = phase_probes(dev, peak)
+    probe_calls = {}
+    probe_launches, probe_errs, probe_rows = phase_probes(dev, peak,
+                                                          probe_calls)
     print(f"compaction variants launches: {u64_launches}; probe launches: "
           f"{probe_launches}", flush=True)
     launches.update(u64_launches)
@@ -1401,6 +1549,7 @@ def main() -> int:
         launches[kname] = launches.get(kname, 0) + count
     torch.cuda.empty_cache()
     phase_config3(dev)
+    phase_probe_device_times(probe_calls, probe_rows)
 
     result = {"kernels": [
         dict(name="compact", route="cuda",
@@ -1443,7 +1592,9 @@ def main() -> int:
              **u64_rows["compact_split"]),
     ] + [
         dict(name=f"run_probes/{pname}", route="cuda",
-             source="arrow1_tpu_torch/csrc/probes.cu",
+             source=("arrow1_tpu_torch/csrc/probe_ops.cu"
+                     if probe_rows[pname]["launch_path"] == "dispatcher"
+                     else "arrow1_tpu_torch/csrc/probes.cu"),
              replaces=f"arrow1_tpu/kernels/tpu_probes.py:{line}",
              launches=probe_launches[pname], max_abs_err=probe_errs[pname],
              bound_by="bytes", **probe_rows[pname])

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import arrow1_tpu_torch as pt
+from arrow1_tpu_torch.errors import Invalid
 from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
                                                  compact_u64,
                                                  compact_u64_plain)
@@ -22,7 +23,10 @@ from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
 from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
                                                 broadcast_probe_plain)
-from arrow1_tpu_torch.kernels.probes import run_probe, run_probes
+from arrow1_tpu_torch.kernels import build
+from arrow1_tpu_torch.kernels.probes import (OPERATORS, PROBES, SOURCE,
+                                             plain, probe_inputs, run_probe,
+                                             run_probes)
 from arrow1_tpu_torch.kernels.segsum import (segment_sum_count,
                                              segment_sum_count_plain)
 from arrow1_tpu_torch.kernels.segsum2 import segment_sums, \
@@ -309,3 +313,110 @@ def test_probes_on_card_are_ok(cuda):
     assert report and all(v == "OK" for v in report.values()), report
     assert all(run_probe.launches[name] == before[name] + 1
                for name in before)
+
+
+def _operator_inputs(name, cuda):
+    """(label, input) pairs at the reference's shape and other legal
+    sizes: smem-output with n not a multiple of 4 and views that start off
+    16-byte alignment; blocked-2d with a misaligned and a strided view."""
+    rng = np.random.default_rng(11)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, shape).astype(np.int32)).to(cuda)
+
+    ref = probe_inputs(cuda)["x1" if name == "smem-output" else "x2"]
+    if name == "smem-output":
+        flat = ints(1_000_003)
+        return [("reference", ref)] + [
+            (f"n={n}", ints(n)) for n in (1, 3, 4, 5, 4097, 1_000_003)] + [
+            (f"offset {k}", flat[k:]) for k in (1, 2, 3)] + [
+            ("offset 1, n=2", flat[1:3]), ("strided", flat[::3])]
+    flat = ints(64 * 128 + 1)
+    return [("reference", ref), ("8 rows", ints(8, 128)),
+            ("1024 rows", ints(1024, 128)),
+            ("misaligned", flat[1:].reshape(64, 128)),
+            ("strided", ints(16, 256)[:, :128])]
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_operator_probes_match_plain(cuda, name):
+    """int32 results bit-equal to the plain versions (sums wrap)."""
+    for label, x in _operator_inputs(name, cuda):
+        before = run_probe.launches[name]
+        got = run_probe(name, x)
+        torch.cuda.synchronize()
+        assert run_probe.launches[name] == before + 1, label
+        assert got.dtype == torch.int32 and got.device == x.device, label
+        assert torch.equal(got, plain(name, x)), label
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_operator_probes_run_through_the_dispatcher(cuda, name):
+    x = probe_inputs(cuda)[PROBES[name][1]]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = run_probe(name, x)
+    torch.cuda.synchronize()
+    op = f"a1t::{PROBES[name][0]}"
+    assert any(e.key == op for e in prof.key_averages()), op
+    assert torch.equal(got, getattr(torch.ops.a1t, PROBES[name][0])(x))
+    # the ctypes library no longer has an entry for it
+    assert not hasattr(build.load(SOURCE), f"a1t_{PROBES[name][0]}")
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_operator_probes_reject_bad_inputs(cuda, name):
+    kind = PROBES[name][1]
+    x = probe_inputs(cuda)[kind]
+    before = run_probe.launches[name]
+    with pytest.raises(TypeError, match="int32 input expected"):
+        run_probe(name, x.float())
+    bad = x.reshape(2, -1) if kind == "x1" else x.reshape(-1)[:7 * 128] \
+        .reshape(7, 128)
+    with pytest.raises(ValueError, match="input must be"):
+        run_probe(name, bad)
+    with pytest.raises(ValueError, match="empty input"):
+        run_probe(name, x[:0])
+    with pytest.raises(TypeError, match="no kernel for device cpu"):
+        getattr(torch.ops.a1t, PROBES[name][0])(x.cpu())
+    assert run_probe.launches[name] == before
+
+
+@pytest.mark.parametrize("ty", ["uint16", "uint32", "uint64"])
+def test_unsigned_arithmetic_on_card_matches_cpu(cuda, ty):
+    """The int64 route of unsigned add, subtract, multiply, divide, the
+    checked forms and the compares, on the card as on the CPU."""
+    hi = int(np.iinfo(ty).max)
+    vals = np.array([0, 1, 2, 3, 7, hi // 2, hi // 2 + 1, hi - 1, hi], ty)
+    x, y = np.repeat(vals, len(vals)), np.tile(vals, len(vals))
+    nz = y != 0
+    for xs, ys, fns in ((x, y, ["add", "subtract", "multiply", "less",
+                                "less_equal", "greater", "greater_equal",
+                                "equal", "not_equal"]),
+                        (x[nz], y[nz], ["divide"])):
+        data = {"x": xs, "y": ys}
+        tb, cb = (pt.record_batch(data, device=d) for d in (cuda, "cpu"))
+        for fn in fns:
+            got = pt.call_function(fn, [tb["x"], tb["y"]])
+            assert got.data.device.type == "cuda"
+            assert got.to_pylist() == \
+                pt.call_function(fn, [cb["x"], cb["y"]]).to_pylist(), fn
+    small = pt.record_batch({"x": np.array([3, 1], ty),
+                             "y": np.array([1, 2], ty)}, device=cuda)
+    assert pt.call_function("subtract", [small["x"], small["y"]]) \
+        .to_pylist() == [2, hi]
+    assert pt.call_function("divide", [small["x"], small["y"]]) \
+        .to_pylist() == [3, 0]
+    with pytest.raises(Invalid, match="overflow"):
+        pt.call_function("subtract_checked", [small["x"], small["y"]])
+
+
+def test_uint64_sort_indices_on_card(cuda):
+    values = np.array([(1 << 63) + 5, 3, 0, (1 << 64) - 1], np.uint64)
+    col = pt.record_batch({"u": values}, device=cuda)["u"]
+    col = pt.Column(col.data, col.dtype,
+                    validity=torch.tensor([True, True, False, True],
+                                          device=cuda))
+    assert pt.call_function("sort_indices", [col]).to_pylist() == \
+        [1, 0, 3, 2]

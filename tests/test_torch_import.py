@@ -103,6 +103,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pt.table(data)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.interop.table_from_arrow(pa.table(data))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.interop.column_from_numpy(data["k"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.interop.column_from_arrow(pa.array(data["k"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.interop.record_batch_from_arrow(pa.record_batch(data))
     # the query layer runs where its source's tensors are: a source made
     # without naming the CPU wants CUDA
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -121,6 +127,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         probes.run_probes()
     assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
+    assert pt.interop.column_from_numpy(
+        data["k"], device="cpu").device.type == "cpu"
+    assert pt.interop.column_from_arrow(
+        pa.array(data["k"]), device="cpu").device.type == "cpu"
+    assert pt.interop.record_batch_from_arrow(
+        pa.record_batch(data), device="cpu")["k"].device.type == "cpu"
     t = pt.table(data, device="cpu")
     assert pt.query(t).to_table().batches[0]["k"].device.type == "cpu"
 
@@ -135,7 +147,7 @@ def test_later_slice_types_raise():
 
 
 def test_build_is_keyed_on_sources_and_needs_nvcc(monkeypatch, tmp_path):
-    for src in build.SOURCES:
+    for src in build.TARGETS:
         path = build.library_path(src)
         assert path.parent == build.BUILD_DIR
         assert path == build.library_path(src)   # deterministic
@@ -148,6 +160,32 @@ def test_build_is_keyed_on_sources_and_needs_nvcc(monkeypatch, tmp_path):
                         lambda s: tmp_path / "out" / f"{s}.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
+
+
+def test_operator_library_is_built_against_torch(monkeypatch):
+    """The command line of the dispatcher library (made here, nvcc is not
+    run): sm_90a, torch's headers and C++ ABI, torch's libraries, both of
+    its sources; the ctypes libraries see no torch header. The library is
+    keyed on torch's version."""
+    from torch.utils import cpp_extension
+
+    out = build.BUILD_DIR / "x.so"
+    cmd = build.command("nvcc", build.OPS, out)
+    assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
+    for path in cpp_extension.include_paths():
+        assert f"-I{path}" in cmd
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    assert f"-D_GLIBCXX_USE_CXX11_ABI={abi}" in cmd
+    for lib in ("c10", "c10_cuda", "torch", "torch_cpu", "torch_cuda"):
+        assert f"-l{lib}" in cmd
+    for src in build.OPS_SOURCES:
+        assert str(build.CSRC / src) in cmd
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    plain = build.command("nvcc", "probes.cu", out)
+    assert not any(a.startswith(("-I", "-l", "-D")) for a in plain)
+    before = build.library_path(build.OPS)
+    monkeypatch.setattr(torch, "__version__", "0.0.0")
+    assert build.library_path(build.OPS) != before
 
 
 def test_strings_are_dictionary_encoded_at_ingest():
