@@ -1,19 +1,19 @@
 // The feature-probe matrix: small kernels, each the Hopper form of one of
-// the Mosaic features that the JAX package's probe matrix exercises. Four
-// are here, behind a plain C interface; smem-output and blocked-2d are in
-// probe_ops.cu, launched by PyTorch operators (probe_ops.cpp).
+// the Mosaic features that the JAX package's probe matrix exercises. Two
+// are here, behind a plain C interface; blocked-1d, blocked-2d, cumsum-1d
+// and smem-output are in probe_ops.cu, launched by PyTorch operators
+// (probe_ops.cpp). Neither of these two has one PyTorch call that
+// computes its output.
 //
-// Replaces four pallas_calls of arrow1_tpu/kernels/tpu_probes.py
+// Replaces two pallas_calls of arrow1_tpu/kernels/tpu_probes.py
 // (run_probes). Each computes what its TPU probe computes, with the
 // mechanism that corresponds to the probed feature:
 //
-//   blocked-1d         2 * x over 1-D blocks of 1024: one block per block;
 //   manual-dma-matmul  per row, the inclusive count of odd values (the
 //                      TPU's (x % 2) @ upper-triangular product): the tile
 //                      arrives in shared memory by cp.async (the TPU's
 //                      manual DMA), one warp scans each row, and the tile
 //                      leaves from shared memory;
-//   cumsum-1d          inclusive int32 cumsum: one block, a block scan;
 //   dma-in-when        cp.async of each [8, 128] tile into shared memory,
 //                      stored to the output only on even tiles (the TPU's
 //                      DMA under pl.when).
@@ -29,18 +29,10 @@
 
 namespace {
 
-constexpr int kBlock = 1024;    // blocked-1d's block, cumsum's threads
 constexpr int kRows = 8;        // a 2-D tile is [kRows, kLanes] int32
 constexpr int kLanes = 128;
 constexpr int kTileElems = kRows * kLanes;
 constexpr unsigned kFullWarp = 0xffffffffu;
-
-__global__ void __launch_bounds__(kBlock)
-double_1d_kernel(const int* __restrict__ x, int* __restrict__ o) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBlock +
-                      threadIdx.x;
-  o[i] = 2 * x[i];
-}
 
 // The block's [kRows, kLanes] tile into shared memory by cp.async, 16
 // bytes a thread; returns after the copy has landed and every thread of
@@ -97,57 +89,13 @@ dma_when_kernel(const int* __restrict__ x, int* __restrict__ o) {
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-cumsum_kernel(const int* __restrict__ x, long long n, int* __restrict__ o) {
-  __shared__ int warp_tot[kBlock / 32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (long long start = 0; start < n; start += kBlock) {
-    const long long i = start + threadIdx.x;
-    const int v = i < n ? x[i] : 0;
-    int incl = v;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(kFullWarp, incl, d);
-      if (lane >= d) incl += up;
-    }
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int w = warp_tot[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int up = __shfl_up_sync(kFullWarp, w, d);
-        if (lane >= d) w += up;
-      }
-      warp_tot[lane] = w;
-    }
-    __syncthreads();
-    const int out = carry + (warp ? warp_tot[warp - 1] : 0) + incl;
-    if (i < n) o[i] = out;
-    __syncthreads();  // every thread has read carry and warp_tot
-    if (threadIdx.x == kBlock - 1) carry = out;
-    __syncthreads();
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// Every entry takes int32 device buffers and launches on `stream`, never
-// synchronises, and returns cudaGetLastError(). The 2-D probes take
-// [rows, 128] with rows a positive multiple of 8 and 16-byte aligned
-// buffers; blocked-1d takes n a positive multiple of 1024.
-
-int a1t_probe_blocked_1d(const void* x, int64_t n, void* o, void* stream) {
-  if (n <= 0 || n % kBlock) return static_cast<int>(cudaErrorInvalidValue);
-  double_1d_kernel<<<static_cast<unsigned>(n / kBlock), kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(o));
-  return static_cast<int>(cudaGetLastError());
-}
+// Both entries take int32 device buffers of [rows, 128], rows a positive
+// multiple of 8, 16-byte aligned; each launches on `stream`, never
+// synchronises, and returns cudaGetLastError().
 
 int a1t_probe_dma_matmul(const void* x, int64_t rows, void* o,
                          void* stream) {
@@ -157,13 +105,6 @@ int a1t_probe_dma_matmul(const void* x, int64_t rows, void* o,
   dma_scan_kernel<<<static_cast<unsigned>(rows / kRows), kCopyThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), static_cast<int*>(o));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int a1t_probe_cumsum_1d(const void* x, int64_t n, void* o, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cumsum_kernel<<<1, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), n, static_cast<int*>(o));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,7 +27,8 @@ from ..ops import selection
 from ..ops.aggregate import _as_type, _sum_output_type
 from ..ops.join import key_planes, key_validity
 from ..ops.padded import (group_sort_padded, join_padded, seg_diff_lo,
-                          seg_minmax_plane, seg_sum_plane, seg_values_at_ends)
+                          seg_float_sum, seg_minmax_plane, seg_sum_plane,
+                          seg_values_at_ends)
 from ..table import RecordBatch, record_batch
 
 __all__ = ["PipelineBuilder", "CompiledPipeline"]
@@ -201,9 +202,10 @@ class CompiledPipeline:
                      max_groups: int = 65536) -> _State:
         """Sorted-space hash aggregate with static output capacity: one
         stable sort of the packed keys (aggregate inputs ride as
-        payloads), cumsum-diff and flagged-scan segment reductions read at
-        the segment ends, and key columns decoded from the sorted words at
-        the group starts. Groups come out in key order."""
+        payloads), cumsum-diff (integers) and flagged-scan segment
+        reductions read at the segment ends, per-segment float sums, and
+        key columns decoded from the sorted words at the group starts.
+        Groups come out in key order."""
         n = state.capacity
         dev = state.live.device
         G = max(min(int(max_groups), n), 1)
@@ -236,14 +238,20 @@ class CompiledPipeline:
         sg, sorted_p, swords, places, words_at_start = group_sort_padded(
             key_pairs, None if state.all_live else state.live, payloads, G)
 
-        # aggregate tails in two phases: full-length cumsum / scan planes,
-        # then ONE batched read at the segment ends, then G-sized
-        # arithmetic
+        # aggregate tails in two phases: full-length cumsum / scan planes
+        # (integer sums and counts, min/max/any/all), then ONE batched read
+        # at the segment ends, then G-sized arithmetic. Float sums are [G]
+        # results at once: each group adds its own rows (seg_float_sum)
         end_planes: List[torch.Tensor] = []
 
-        def want(p) -> int:
+        def want(p) -> Tuple[str, int]:
             end_planes.append(p)
-            return len(end_planes) - 1
+            return ("plane", len(end_planes) - 1)
+
+        def sum_ref(x, mask_s, acc_dt) -> Tuple:
+            if acc_dt == torch.float64:
+                return ("direct", seg_float_sum(x, mask_s, sg))
+            return want(seg_sum_plane(x, mask_s, sg, acc_dt))
 
         arith_vcount = None
         if state.all_live:   # no dead rows: count = segment length
@@ -251,14 +259,17 @@ class CompiledPipeline:
                                        sg.endpos - sg.startpos + 1, 0)
         vcount_plane: Dict = {}
 
+        def count_ref(mask_s):
+            return want(seg_sum_plane(
+                torch.ones(n, dtype=torch.int64, device=dev), mask_s, sg,
+                torch.int64))
+
         def vcount_ref(vi, mask_s):
             if mask_s is None and arith_vcount is not None:
-                return ("arith", None)
+                return ("direct", arith_vcount)
             if vi not in vcount_plane:
-                vcount_plane[vi] = want(seg_sum_plane(
-                    torch.ones(n, dtype=torch.int64, device=dev), mask_s,
-                    sg, torch.int64))
-            return ("plane", vcount_plane[vi])
+                vcount_plane[vi] = count_ref(mask_s)
+            return vcount_plane[vi]
 
         recipes = []
         for (cname, fn), (di, vi) in zip(aggregates, agg_slots):
@@ -286,16 +297,21 @@ class CompiledPipeline:
             if fn == "count":
                 extra = ()
             elif fn in ("sum", "mean"):
-                extra = (want(seg_sum_plane(xs, mask_s, sg, acc_dt)),)
+                extra = (sum_ref(xs, mask_s, acc_dt),)
             elif fn in ("min", "max"):
                 init = _minmax_init(col.dtype, fn == "min")
+                # NaN is skipped; a group of valid NaNs only gives NaN
+                non_nan = None
+                if col.dtype.is_floating:
+                    ok = ~torch.isnan(xs)
+                    non_nan = count_ref(ok if mask_s is None
+                                        else ok & mask_s)
                 extra = (want(seg_minmax_plane(xs, mask_s, sg, fn == "min",
-                                               init)), init)
+                                               init)), init, non_nan)
             elif fn in ("variance", "stddev"):
                 x = xs.to(torch.float64)
-                extra = (want(seg_sum_plane(x, mask_s, sg, torch.float64)),
-                         want(seg_sum_plane(x * x, mask_s, sg,
-                                            torch.float64)))
+                extra = (sum_ref(x, mask_s, torch.float64),
+                         sum_ref(x * x, mask_s, torch.float64))
             else:   # any / all
                 extra = (want(seg_minmax_plane(xs != 0, mask_s, sg,
                                                fn == "all", fn == "all")),)
@@ -303,34 +319,39 @@ class CompiledPipeline:
 
         ends = seg_values_at_ends(sg, end_planes) if end_planes else []
 
-        def vcount_of(vc):
-            kind, idx = vc
-            return arith_vcount if kind == "arith" else \
-                seg_diff_lo(ends[idx], sg)
+        def at_ends(ref):
+            return ends[ref[1]]
+
+        def value(ref):
+            """A sum or count: a [G] result, or a plane's ends differenced."""
+            kind, x = ref
+            return x if kind == "direct" else seg_diff_lo(ends[x], sg)
 
         cols, names = [], []
         for cname, fn, out_t, vc, extra in recipes:
-            vcount = vcount_of(vc)
+            vcount = value(vc)
             if fn == "count":
                 acc = vcount
             elif fn == "sum":
-                acc = seg_diff_lo(ends[extra[0]], sg)
+                acc = value(extra[0])
             elif fn == "mean":
-                s = seg_diff_lo(ends[extra[0]], sg)
-                acc = s.to(torch.float64) / vcount.clamp(min=1).to(
-                    torch.float64)
+                acc = value(extra[0]).to(torch.float64) / vcount.clamp(
+                    min=1).to(torch.float64)
             elif fn in ("min", "max"):
-                acc = torch.where(sg.group_valid, ends[extra[0]], extra[1])
+                acc = torch.where(sg.group_valid, at_ends(extra[0]),
+                                  extra[1])
+                if extra[2] is not None:
+                    acc = torch.where((value(extra[2]) == 0) & (vcount > 0),
+                                      float("nan"), acc)
             elif fn in ("variance", "stddev"):
-                s1 = seg_diff_lo(ends[extra[0]], sg)
-                s2 = seg_diff_lo(ends[extra[1]], sg)
+                s1, s2 = value(extra[0]), value(extra[1])
                 nv = vcount.clamp(min=1).to(torch.float64)
                 mean = s1 / nv
                 acc = (s2 / nv - mean * mean).clamp(min=0.0)
                 if fn == "stddev":
                     acc = torch.sqrt(acc)
             else:   # any / all
-                acc = torch.where(sg.group_valid, ends[extra[0]],
+                acc = torch.where(sg.group_valid, at_ends(extra[0]),
                                   fn == "all")
             validity = None if fn == "count" else \
                 ((vcount > 0) & sg.group_valid)

@@ -5,17 +5,19 @@ arrow1_tpu/kernels/tpu_probes.py). Run it on a GPU:
 
 Each probe launches one small kernel on the reference's inputs
 (``x1 = arange(4096)`` int32, ``x2 = arange(4096)`` as [32, 128]) and
-compares its output with the probe's plain PyTorch version. Four probes
-are C functions of ``csrc/probes.cu``, called through ctypes. smem-output
-and blocked-2d are operators of PyTorch's dispatcher
-(``torch.ops.a1t.probe_smem_output``, ``probe_blocked_2d``; host code
+compares its output with the probe's plain PyTorch version. The four
+probes that one PyTorch call also computes (blocked-1d, blocked-2d,
+cumsum-1d, smem-output) are operators of PyTorch's dispatcher
+(``torch.ops.a1t.probe_blocked_1d``, ``probe_blocked_2d``,
+``probe_cumsum_1d``, ``probe_smem_output``; host code
 ``csrc/probe_ops.cpp``, kernels ``csrc/probe_ops.cu``), which check,
 allocate and launch in C++: a call costs about what one PyTorch call
-does. The report is the reference's: probe name -> "OK", or
-"FAIL: <message>"; "OK" means the kernel launched and its output equals
-the plain version's. The two bitcast probes of the reference are
-``jax.jit`` programs, not kernels; here they are ``Tensor.view``s,
-checked against their expected values.
+does. manual-dma-matmul and dma-in-when are C functions of
+``csrc/probes.cu``, called through ctypes. The report is the
+reference's: probe name -> "OK", or "FAIL: <message>"; "OK" means the
+kernel launched and its output equals the plain version's. The two
+bitcast probes of the reference are ``jax.jit`` programs, not kernels;
+here they are ``Tensor.view``s, checked against their expected values.
 """
 
 from __future__ import annotations
@@ -39,14 +41,14 @@ R, L, T = 8, 128, 1024   # a 2-D tile is [R, L]; a 1-D block is T
 # C function of probes.cu, or, for the names in OPERATORS, an operator in
 # torch.ops.a1t
 PROBES = {
-    "blocked-1d": ("a1t_probe_blocked_1d", "x1"),
+    "blocked-1d": ("probe_blocked_1d", "x1"),
     "blocked-2d": ("probe_blocked_2d", "x2"),
     "manual-dma-matmul": ("a1t_probe_dma_matmul", "x2"),
-    "cumsum-1d": ("a1t_probe_cumsum_1d", "x1"),
+    "cumsum-1d": ("probe_cumsum_1d", "x1"),
     "smem-output": ("probe_smem_output", "x1"),
     "dma-in-when": ("a1t_probe_dma_in_when", "x2"),
 }
-OPERATORS = ("blocked-2d", "smem-output")
+OPERATORS = ("blocked-1d", "blocked-2d", "cumsum-1d", "smem-output")
 
 
 def probe_inputs(device) -> Dict[str, torch.Tensor]:
@@ -127,7 +129,7 @@ def run_probe(name: str, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise TypeError(f"probe {name}: no kernel for device {x.device}")
     x = x.contiguous()
-    if x.data_ptr() % 16:   # the 2-D probes copy 16 bytes a thread
+    if x.data_ptr() % 16:   # the tiles move 16 bytes a thread
         x = x.clone()
     if name == "dma-in-when":
         # odd tiles are never written: they keep these zeros

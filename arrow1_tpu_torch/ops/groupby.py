@@ -26,6 +26,7 @@ version on the CPU.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -66,8 +67,16 @@ def _minmax_fills(t: dt.DataType, y: torch.Tensor):
     return info.max, info.min
 
 
+def _all_nan(non_nan_count: torch.Tensor, has_valid: torch.Tensor):
+    """The groups whose valid values are all NaN: their min and max are
+    NaN, as pyarrow gives (NaN is otherwise skipped)."""
+    return (non_nan_count == 0) & has_valid
+
+
 def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
-    """One grouped aggregate by scatters -> list of (suffix, Column)."""
+    """One grouped aggregate by scatters -> list of (suffix, Column).
+    Float sums add each group's rows in a fixed order (a sort of the ids,
+    then per-segment sums), not by float atomics."""
     t = col.dtype
     valid = col.validity
     gids = gids.to(torch.int64)
@@ -76,6 +85,11 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
 
     def masked(x, fill):
         return x if valid is None else torch.where(valid, x, fill)
+
+    sorted_ids = functools.cache(lambda: grouping_from_ids(gids, ngroups))
+
+    def float_sum(x):
+        return segment_sum(x, sorted_ids(), torch.float64)
 
     if fn == "count":
         return [("count", Column(vcount, dt.int64))]
@@ -93,6 +107,8 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
         if fn == "product":
             acc = torch.ones(ngroups, dtype=x.dtype, device=dev)
             acc.scatter_reduce_(0, gids, masked(x, 1), "prod")
+        elif x.is_floating_point():
+            acc = float_sum(masked(x, 0.0))
         else:
             acc = torch.zeros(ngroups, dtype=x.dtype, device=dev)
             acc.index_add_(0, gids, masked(x, 0))
@@ -110,15 +126,20 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
             y, back = minmax_domain(col.data)
             big, small = _minmax_fills(t, y)
         y_min, y_max = masked(y, big), masked(y, small)
+        gv = vcount > 0
+        all_nan = None
         if t.is_floating:   # NaN-ignoring, as the scalar min_max
             nan = torch.isnan(y)
             y_min = torch.where(nan, big, y_min)
             y_max = torch.where(nan, small, y_max)
-        gv = vcount > 0
+            all_nan = _all_nan(_segment_count(
+                ~nan if valid is None else valid & ~nan, gids, ngroups), gv)
 
         def reduce(vals, fill, how):
             acc = torch.full((ngroups,), fill, dtype=y.dtype, device=dev)
             acc.scatter_reduce_(0, gids, vals, how)
+            if all_nan is not None:
+                acc = torch.where(all_nan, float("nan"), acc)
             if back is not None:
                 return Column(back(acc), t, validity=gv)
             inv = torch.argsort(rank.to(dev))
@@ -134,10 +155,7 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
         return out
     if fn in ("variance", "stddev"):
         x = masked(col.data.to(torch.float64), 0.0)
-        s1 = torch.zeros(ngroups, dtype=torch.float64,
-                         device=dev).index_add_(0, gids, x)
-        s2 = torch.zeros(ngroups, dtype=torch.float64,
-                         device=dev).index_add_(0, gids, x * x)
+        s1, s2 = float_sum(x), float_sum(x * x)
         nvalid = vcount.to(torch.float64).clamp(min=1)
         mean = s1 / nvalid
         var = (s2 / nvalid - mean * mean).clamp(min=0.0)
@@ -261,16 +279,20 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
         y, back = minmax_domain(sdata)
         big, small = _minmax_fills(t, y)
         y_min = y_max = y
-        if t.is_floating:
+        finish = back
+        if t.is_floating:   # NaN-skipping, as the scalar min_max
             nan = torch.isnan(y)
             y_min = torch.where(nan, big, y)
             y_max = torch.where(nan, small, y)
+            all_nan = _all_nan(segment_count(
+                ~nan if valid is None else valid & ~nan, g, sorted_=srt), gv)
+            finish = (lambda r: torch.where(all_nan, float("nan"), r))
         out = []
         if fn in ("min", "min_max"):
-            out.append(("min", Column(back(segment_minmax(
+            out.append(("min", Column(finish(segment_minmax(
                 masked(y_min, big), g, True, sorted_=srt)), t, validity=gv)))
         if fn in ("max", "min_max"):
-            out.append(("max", Column(back(segment_minmax(
+            out.append(("max", Column(finish(segment_minmax(
                 masked(y_max, small), g, False, sorted_=srt)), t,
                 validity=gv)))
         return out

@@ -12,9 +12,12 @@ representatives sorted by row to recover appearance order.
 What the JAX package did to suit its TPU is left behind: payloads are
 gathered once each instead of riding a variadic sort, scans are
 ``torch.cumsum`` and ``ops/padded._segmented_scan``, and an inverse
-permutation is one scatter instead of a second sort. Segment starts come
-from the compaction kernel (K2) at every group count; the reference sorted
-again above 65536 groups because its TPU's binary searches serialised.
+permutation is one scatter instead of a second sort. Float sums add each
+group's own rows, where the JAX package differences a cumsum across
+groups (its leak of one group's inf or NaN into the next is not kept).
+Segment starts come from the compaction kernel (K2) at every group
+count; the reference sorted again above 65536 groups because its TPU's
+binary searches serialised.
 The group count is the one host sync of a grouping: it sizes the output.
 """
 
@@ -34,7 +37,7 @@ from ..kernels.radix import (minimal_sort_keys, pack_operands,
 from ..registry import register_function
 from ..table import RecordBatch
 from .common import minmax_domain
-from .padded import _segmented_scan
+from .padded import _segmented_scan, segment_float_sums
 from .selection import take_column
 from .sort import normalize_sort_key
 
@@ -161,10 +164,15 @@ def group_ids_of(g: Grouping) -> torch.Tensor:
 
 def segment_sum(x: torch.Tensor, g: Grouping, acc_dtype,
                 sorted_: bool = False) -> torch.Tensor:
-    """Per-group sum in appearance order: cumsum in sorted space read at
-    the segment ends and differenced (exact for integers, mod 2^64).
-    ``sorted_`` means x is already in ``g.order``."""
+    """Per-group sum in appearance order. An integer sum is a cumsum in
+    sorted space read at the segment ends and differenced (exact mod
+    2^64); a float sum adds each segment's own rows (segment_float_sums),
+    so no group's magnitude, inf or NaN reaches another. ``sorted_``
+    means x is already in ``g.order``."""
     xs = (x if sorted_ else x[g.order]).to(acc_dtype)
+    if xs.is_floating_point():
+        return segment_float_sums(xs, torch.diff(g.seg_bounds))[
+            g.appearance]
     c = torch.cumsum(xs, 0)
     hi = c[g.seg_bounds[1:] - 1]
     starts = g.seg_bounds[:-1]

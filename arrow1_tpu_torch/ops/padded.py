@@ -5,7 +5,10 @@ Every function keeps its outputs at a capacity fixed by the plan, with a
 valid-count or valid-mask on the device, so a pipeline runs without host
 syncs between operators. Scans are ``torch.cumsum`` or a flagged scan;
 the JAX package's blocked scans (kernels/blockscan.py) only capped TPU
-compile time and are not carried over.
+compile time and are not carried over. A float group sum adds each
+group's own rows (``segment_float_sums``): a cumsum differenced across
+groups, as the JAX package takes it, lets one group's magnitude, inf or
+NaN reach every group after it.
 
 When the group capacity G exceeds 65536, segment starts and segment-end
 values come out of the compaction kernel (kernels/compaction.py, K2), as
@@ -32,7 +35,8 @@ from ..kernels.radix import pack_layout, pack_operands, sort_permutation
 __all__ = ["filter_padded", "last_marked", "probe_ranges_sortmerge",
            "join_padded", "SortedGroups", "group_sort_padded", "gsp_sort",
            "gsp_flags", "gsp_segments", "gsp_positions_big", "seg_sum_plane",
-           "seg_minmax_plane", "seg_values_at_ends", "seg_diff_lo"]
+           "segment_float_sums", "seg_float_sum", "seg_minmax_plane",
+           "seg_values_at_ends", "seg_diff_lo"]
 
 BIG_G = 65536   # above this group capacity, segments come from K2
 
@@ -343,11 +347,36 @@ def gsp_positions_big(pos_pad, total_segs, num_groups, G, n,
 
 def seg_sum_plane(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
                   sg: SortedGroups, acc_dtype) -> torch.Tensor:
-    """Full-length inclusive cumsum plane of a segment sum; read it at the
-    segment ends (seg_values_at_ends) and difference (seg_diff_lo)."""
+    """Full-length inclusive cumsum plane of an integer segment sum (exact
+    mod 2^64 across groups); read it at the segment ends
+    (seg_values_at_ends) and difference (seg_diff_lo). Float sums take
+    ``seg_float_sum``."""
     m = sg.live_sorted if mask_s is None else (mask_s & sg.live_sorted)
     return torch.cumsum(torch.where(m, xs.to(acc_dtype), 0), 0,
                         dtype=acc_dtype)
+
+
+def segment_float_sums(xs: torch.Tensor, lengths: torch.Tensor
+                       ) -> torch.Tensor:
+    """Sums of consecutive segments of the float tensor ``xs``, the first
+    starting at row 0 (``lengths`` may cover fewer rows than ``xs``
+    holds); an empty segment sums to 0. Each sum adds its own segment's
+    rows only, so one group's magnitude, inf or NaN never reaches another,
+    as it would through a cumsum that crosses groups. The additions run in
+    a fixed order (no atomics): a rerun gives the same bits. ``unsafe``
+    skips the checks of the lengths, which would read them on the host."""
+    return torch.segment_reduce(xs, "sum", lengths=lengths, unsafe=True)
+
+
+def seg_float_sum(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
+                  sg: SortedGroups) -> torch.Tensor:
+    """Per-slot float64 sums [G]: the valid slots' segments tile the
+    sorted rows from row 0, masked rows add 0, and slots past num_groups
+    are empty (0)."""
+    m = sg.live_sorted if mask_s is None else (mask_s & sg.live_sorted)
+    lengths = torch.where(sg.group_valid, sg.endpos - sg.startpos + 1, 0)
+    return segment_float_sums(torch.where(m, xs.to(torch.float64), 0.0),
+                              lengths)
 
 
 def seg_diff_lo(hi: torch.Tensor, sg: SortedGroups) -> torch.Tensor:
@@ -395,8 +424,12 @@ def _segmented_scan(vals: torch.Tensor, first: torch.Tensor, op):
 def seg_minmax_plane(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
                      sg: SortedGroups, is_min: bool, init) -> torch.Tensor:
     """Full-length flagged-scan plane of a segment min/max; ``init`` is
-    the identity that masked rows contribute."""
+    the identity that masked rows contribute. NaN is skipped, as masked
+    rows are (a group whose valid values are all NaN reads ``init``; the
+    caller puts NaN there)."""
     m = sg.live_sorted if mask_s is None else (mask_s & sg.live_sorted)
+    if xs.is_floating_point():
+        m = m & ~torch.isnan(xs)
     vals = torch.where(m, xs, init)
     if vals.dtype == torch.bool:
         op = torch.logical_and if is_min else torch.logical_or

@@ -38,7 +38,14 @@ probe_ops.cu and probe_ops.cpp), then:
    sum/count/min/max at G = 2^20 on the sorted path (no K3). Every launch
    count is set to 0 just before and read just after: K3 must have
    launched exactly twice. Each result must equal a numpy oracle in the
-   path's row order (key order, first-appearance order);
+   path's row order (key order, first-appearance order). Then grouped
+   float sums: a small input of float faults (a magnitude, inf, NaN and
+   all-NaN groups) through the eager group_by, the hash_* entry points,
+   the compiled pipeline and a two-batch query() must give pyarrow's
+   answers, and 10M float64 rows at G = 1000 and 2^20 through the eager
+   group_by and the compiled pipeline (sum, mean, variance) must give the
+   same bits twice and sums within the summation bound of numpy's, with
+   each wall;
 7. drives the small sorted-build probe (K4, broadcast_probe) through its
    entry point at benchmarks/r2's shapes (seed 6, 9,994,240 probes in
    [0, 2^40), T in {256, 1024, 2048}) and on a second probe set (half the
@@ -70,12 +77,12 @@ probe_ops.cu and probe_ops.cpp), then:
    versions and boolean-mask indexing;
 11. runs the probe matrix (kernels/probes.py) on the card: every probe
    must read OK (its kernel launched once and equals its plain version);
-   smem-output and blocked-2d go through their PyTorch operators
-   (torch.ops.a1t), the other four through ctypes. Each probe's kernel
-   and, where one PyTorch call computes the same output, library call are
-   timed in turns (CUDA events, median of PROBE_RUNS), the plain version
-   alone, and each with its host time per call (HOST_CALLS back-to-back
-   calls, one synchronise);
+   blocked-1d, blocked-2d, cumsum-1d and smem-output go through their
+   PyTorch operators (torch.ops.a1t), the other two through ctypes. Each
+   probe's kernel and, where one PyTorch call computes the same output,
+   library call are timed in turns (CUDA events, median of PROBE_RUNS),
+   the plain version alone, and each with its host time per call
+   (HOST_CALLS back-to-back calls, one synchronise);
 12. drives the query layer at TPC-H SF10 cardinalities (59,986,052 line
    items in 2^20-row batches, 15M orders, 1.5M customers): Q1, Q3, Q5 and
    Q6 through query() (models.tpch), Q1 as an acero Declaration and Q3
@@ -206,7 +213,7 @@ def _device_us(fn, calls=PROFILE_CALLS):
     """(device time per call in us, names of the kernels, names of the
     operators called) from torch.profiler's records over ``calls`` calls
     after a warm-up; the time is None when the profiler recorded no
-    device time."""
+    device time, or fewer records of a kernel than calls."""
     from arrow1_tpu_torch.profile_main_path import event_device_us
 
     for _ in range(3):
@@ -223,8 +230,9 @@ def _device_us(fn, calls=PROFILE_CALLS):
     kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
                and event_device_us(e) > 0]
-    if not kernels:
-        return None, [], ops
+    # a kernel with fewer records than calls lost some: no time from it
+    if not kernels or min(e.count for e in kernels) < calls:
+        return None, sorted({e.key[:60] for e in kernels}), ops
     return (sum(event_device_us(e) for e in kernels) / calls,
             sorted({e.key[:60] for e in kernels}), ops)
 
@@ -641,6 +649,121 @@ def phase_group_by(pt, dev, counted):
               f"the numpy oracle; wall {statistics.median(walls) * 1e3:.3f} "
               "ms (median of 3)", flush=True)
     return launches
+
+
+NAN, INF = float("nan"), float("inf")
+# The grouped-float fault input (tests/test_torch_port_faults.py holds
+# FLOAT_WANT to be pyarrow's answer): groups 1-9 in key order. A cumsum
+# differenced across groups loses group 2's 3.0 under group 1's 2e20, and
+# group 3's inf and group 5's NaN reach every later group; group 5 is all
+# NaN, group 7 holds one NaN beside 4.0, group 9 only nulls.
+FLOAT_K = [1, 2, 2, 1, 3, 4, 4, 3, 5, 6, 6, 5, 7, 8, 8, 7, 2, 9]
+FLOAT_V = [1e20, 1.0, 2.0, 1e20, INF, 5.0, 5.0, INF, NAN, 3.0, 3.0, NAN,
+           NAN, 7.0, 1.0, 4.0, None, None]
+FLOAT_AGGS = [("v", "sum"), ("v", "mean"), ("v", "variance"),
+              ("v", "stddev"), ("v", "min"), ("v", "max")]
+FLOAT_WANT = {
+    "v_sum": [2e20, 3.0, INF, 10.0, NAN, 6.0, NAN, 8.0, None],
+    "v_mean": [1e20, 1.5, INF, 5.0, NAN, 3.0, NAN, 4.0, None],
+    "v_variance": [0.0, 0.25, NAN, 0.0, NAN, 0.0, NAN, 9.0, None],
+    "v_stddev": [0.0, 0.5, NAN, 0.0, NAN, 0.0, NAN, 3.0, None],
+    "v_min": [1e20, 1.0, INF, 5.0, NAN, 3.0, 4.0, 1.0, None],
+    "v_max": [1e20, 2.0, INF, 5.0, NAN, 3.0, 4.0, 7.0, None],
+}
+FLOAT_SUM_AGGS = [("f", "sum"), ("f", "mean"), ("f", "variance")]
+
+
+def _same_floats(got, want) -> bool:
+    """Equal lists of floats and None, NaN equal to NaN."""
+    return len(got) == len(want) and all(
+        a == b or (a is not None and b is not None and a != a and b != b)
+        for a, b in zip(got, want))
+
+
+def _key_order(out, names, key="k"):
+    order = np.argsort(out[key].data.cpu().numpy(), kind="stable")
+    return {n: [out[n].to_pylist()[i] for i in order] for n in names}
+
+
+def _check_float_faults(pt, dev):
+    """The fault input through the eager group_by, the hash_* entry
+    points, the compiled pipeline and a two-batch query() on the card."""
+    v = np.array([NAN if x is None else x for x in FLOAT_V])
+    b = pt.record_batch({"k": np.array(FLOAT_K, np.int64), "v": v,
+                         "g": np.array(FLOAT_K, np.int32) - 1}, device=dev)
+    vcol = pt.Column(b["v"].data, b["v"].dtype, validity=torch.tensor(
+        [x is not None for x in FLOAT_V], device=dev))
+    b = pt.RecordBatch((b["k"], vcol, b["g"]), b.names)
+    names = [f"v_{f}" for _, f in FLOAT_AGGS]
+    pipe = pt.PipelineBuilder().group_by(["k"], FLOAT_AGGS).compile()
+    results = {"group_by": _key_order(pt.group_by(b, ["k"], FLOAT_AGGS),
+                                      names),
+               "compiled pipeline": _key_order(pipe(b), names),
+               "hash_*": {f"v_{f}": pt.call_function(
+                   f"hash_{f}", [b["v"], b["g"]]).to_pylist()
+                   for _, f in FLOAT_AGGS},
+               "two-batch query()": _key_order(
+                   pt.query(pt.Table([b.slice(0, 9), b.slice(9, 9)]))
+                   .group_by(["k"], FLOAT_AGGS[:2] + FLOAT_AGGS[4:])
+                   .to_batch(), ["v_sum", "v_mean", "v_min", "v_max"])}
+    for label, got in results.items():
+        for name, values in got.items():
+            if not _same_floats(values, FLOAT_WANT[name]):
+                raise AssertionError(f"float faults, {label}: {name} = "
+                                     f"{values}, pyarrow "
+                                     f"{FLOAT_WANT[name]}")
+    print(f"grouped float faults on the card: {', '.join(results)} give "
+          "pyarrow's answers", flush=True)
+
+
+def phase_float_sums(pt, dev):
+    """Grouped float sums on the card: the fault input, then 10M rows of
+    float64 at G = 1000 and 2^20 through the eager group_by and the
+    compiled pipeline, run twice (the same bits), each sum within the
+    summation bound of numpy's row-order sum (any order of n_g additions
+    is within (n_g - 1) u sum|f| of the exact sum, u = 2^-53, so two
+    orders differ by at most twice that), and each wall timed."""
+    _check_float_faults(pt, dev)
+    rng = np.random.default_rng(4)
+    for G, max_groups in ((1000, 65536), (1 << 20, 1 << 20)):
+        k = rng.integers(0, G, N_BIG).astype(np.int64)
+        f = rng.standard_normal(N_BIG) * 10.0 ** rng.integers(-3, 4, N_BIG)
+        batch = pt.record_batch({"k": k, "f": f}, device=dev)
+        count = np.bincount(k, minlength=G)
+        want = np.bincount(k, f, minlength=G)
+        scale = 2.0 ** -53 * np.bincount(k, np.abs(f), minlength=G)
+        bound = 2 * np.maximum(count - 1, 0) * scale
+        pipe = pt.PipelineBuilder().group_by(
+            ["k"], FLOAT_SUM_AGGS, max_groups=max_groups).compile()
+        for label, run in (("group_by", lambda: pt.group_by(
+                batch, ["k"], FLOAT_SUM_AGGS)), ("pipeline", lambda: pipe(
+                    batch))):
+            first, second = run(), run()
+            for name in ("k", "f_sum", "f_mean", "f_variance"):
+                if not torch.equal(_bits(first[name].data),
+                                   _bits(second[name].data)):
+                    raise AssertionError(f"float sums, {label} G={G}: "
+                                         f"{name} differs between runs")
+            keys = first["k"].data.cpu().numpy()
+            got = first["f_sum"].data.cpu().numpy()
+            err = np.abs(got - want[keys])
+            if len(keys) != int((count > 0).sum()) or \
+                    not np.all(err <= bound[keys]):
+                raise AssertionError(f"float sums, {label} G={G}: outside "
+                                     "the summation bound of numpy's sum")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            ulps = float((err / np.maximum(scale[keys], 1e-300)).max())
+            print(f"float sums, {label} 10M rows, G={G} {FLOAT_SUM_AGGS}: "
+                  f"two runs bit-identical; |sum - numpy's| at most {ulps:.1f}"
+                  " u sum|f| (bound 2 (n_g - 1)); wall "
+                  f"{statistics.median(walls) * 1e3:.3f} ms (median of 3)",
+                  flush=True)
 
 
 def _k4_sets(dev):
@@ -1516,6 +1639,7 @@ def main() -> int:
                              "times in the group_by run, not 2")
     for kname, count in gb_launches.items():
         launches[kname] = launches.get(kname, 0) + count
+    phase_float_sums(pt, dev)
 
     # ---- phases 7 to 9: K4 and the joins ------------------------------
     del configs, fkey, fv, ff, recorder

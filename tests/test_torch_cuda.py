@@ -317,21 +317,30 @@ def test_probes_on_card_are_ok(cuda):
 
 def _operator_inputs(name, cuda):
     """(label, input) pairs at the reference's shape and other legal
-    sizes: smem-output with n not a multiple of 4 and views that start off
-    16-byte alignment; blocked-2d with a misaligned and a strided view."""
+    sizes: smem-output and cumsum-1d with n not a multiple of 4 (cumsum-1d
+    also across its 4096-value tiles) and views that start off 16-byte
+    alignment; blocked-1d and blocked-2d with a misaligned and a strided
+    view."""
     rng = np.random.default_rng(11)
 
     def ints(*shape):
         return torch.from_numpy(rng.integers(
             -(1 << 31), 1 << 31, shape).astype(np.int32)).to(cuda)
 
-    ref = probe_inputs(cuda)["x1" if name == "smem-output" else "x2"]
-    if name == "smem-output":
-        flat = ints(1_000_003)
+    ref = probe_inputs(cuda)[PROBES[name][1]]
+    if name in ("smem-output", "cumsum-1d"):
+        sizes = (1, 3, 4, 5, 4097, 1_000_003) if name == "smem-output" \
+            else (1, 31, 4096, 4097, 100_000)
+        flat = ints(1_000_003 if name == "smem-output" else 100_003)
         return [("reference", ref)] + [
-            (f"n={n}", ints(n)) for n in (1, 3, 4, 5, 4097, 1_000_003)] + [
+            (f"n={n}", ints(n)) for n in sizes] + [
             (f"offset {k}", flat[k:]) for k in (1, 2, 3)] + [
             ("offset 1, n=2", flat[1:3]), ("strided", flat[::3])]
+    if name == "blocked-1d":
+        flat = ints(8 * 1024 + 1)
+        return [("reference", ref), ("n=1024", ints(1024)),
+                ("n=102400", ints(100 * 1024)),
+                ("misaligned", flat[1:]), ("strided", ints(8192)[::2])]
     flat = ints(64 * 128 + 1)
     return [("reference", ref), ("8 rows", ints(8, 128)),
             ("1024 rows", ints(1024, 128)),
@@ -378,6 +387,9 @@ def test_operator_probes_reject_bad_inputs(cuda, name):
         run_probe(name, bad)
     with pytest.raises(ValueError, match="empty input"):
         run_probe(name, x[:0])
+    if name == "blocked-1d":
+        with pytest.raises(ValueError, match="multiple of 1024"):
+            run_probe(name, x[:1000])
     with pytest.raises(TypeError, match="no kernel for device cpu"):
         getattr(torch.ops.a1t, PROBES[name][0])(x.cpu())
     assert run_probe.launches[name] == before
@@ -420,3 +432,126 @@ def test_uint64_sort_indices_on_card(cuda):
                                           device=cuda))
     assert pt.call_function("sort_indices", [col]).to_pylist() == \
         [1, 0, 3, 2]
+
+
+NAN, INF = float("nan"), float("inf")
+# The grouped-float fault input of tests/test_torch_port_faults.py, which
+# holds FLOAT_WANT there to be pyarrow's answer (pyarrow is not needed
+# here): groups 1-9 in key order.
+FLOAT_K = [1, 2, 2, 1, 3, 4, 4, 3, 5, 6, 6, 5, 7, 8, 8, 7, 2, 9]
+FLOAT_V = [1e20, 1.0, 2.0, 1e20, INF, 5.0, 5.0, INF, NAN, 3.0, 3.0, NAN,
+           NAN, 7.0, 1.0, 4.0, None, None]
+FLOAT_AGGS = [("v", "sum"), ("v", "mean"), ("v", "variance"),
+              ("v", "stddev"), ("v", "min"), ("v", "max")]
+FLOAT_WANT = {
+    "v_sum": [2e20, 3.0, INF, 10.0, NAN, 6.0, NAN, 8.0, None],
+    "v_mean": [1e20, 1.5, INF, 5.0, NAN, 3.0, NAN, 4.0, None],
+    "v_variance": [0.0, 0.25, NAN, 0.0, NAN, 0.0, NAN, 9.0, None],
+    "v_stddev": [0.0, 0.5, NAN, 0.0, NAN, 0.0, NAN, 3.0, None],
+    "v_min": [1e20, 1.0, INF, 5.0, NAN, 3.0, 4.0, 1.0, None],
+    "v_max": [1e20, 2.0, INF, 5.0, NAN, 3.0, 4.0, 7.0, None],
+}
+
+
+def _float_fault_batch(dev):
+    v = np.array([NAN if x is None else x for x in FLOAT_V])
+    valid = torch.tensor([x is not None for x in FLOAT_V], device=dev)
+    b = pt.record_batch({"k": np.array(FLOAT_K, np.int64), "v": v,
+                         "g": np.array(FLOAT_K, np.int32) - 1}, device=dev)
+    return pt.RecordBatch((b["k"], pt.Column(b["v"].data, b["v"].dtype,
+                                             validity=valid), b["g"]),
+                          b.names)
+
+
+def _same(got, want):
+    """Equal lists of floats and None, NaN equal to NaN."""
+    return len(got) == len(want) and all(
+        a == b or (a is not None and b is not None and a != a and b != b)
+        for a, b in zip(got, want))
+
+
+def _in_key_order(out, names):
+    order = np.argsort(np.array(out["k"].to_pylist()))
+    return {n: [out[n].to_pylist()[i] for i in order] for n in names}
+
+
+def test_grouped_float_faults_on_card_match_pyarrow(cuda):
+    """The eager group_by, the hash_* entry points, the compiled pipeline
+    and a two-batch query() on the card give pyarrow's answers: per-group
+    float sums, min/max that skip NaN and give NaN for a group of NaNs."""
+    b = _float_fault_batch(cuda)
+    names = [f"v_{f}" for _, f in FLOAT_AGGS]
+    eager = _in_key_order(pt.group_by(b, ["k"], FLOAT_AGGS), names)
+    pipe = pt.PipelineBuilder().group_by(["k"], FLOAT_AGGS).compile()
+    compiled = _in_key_order(pipe(b), names)
+    for name in names:
+        assert _same(eager[name], FLOAT_WANT[name]), (name, eager[name])
+        assert _same(compiled[name], FLOAT_WANT[name]), name
+    for _, fn in FLOAT_AGGS:
+        got = pt.call_function(f"hash_{fn}", [b["v"], b["g"]])
+        assert got.data.device == b["v"].data.device
+        assert _same(got.to_pylist(), FLOAT_WANT[f"v_{fn}"]), fn
+    aggs = [("v", "sum"), ("v", "mean"), ("v", "min"), ("v", "max")]
+    table = pt.Table([b.slice(0, 9), b.slice(9, 9)])
+    streamed = _in_key_order(pt.query(table).group_by(["k"], aggs)
+                             .to_batch(), [f"v_{f}" for _, f in aggs])
+    for name, values in streamed.items():
+        assert _same(values, FLOAT_WANT[name]), name
+
+
+def test_grouped_float_sums_are_deterministic_on_card(cuda):
+    """Two runs give the same bits (no float atomics), and the card's sums
+    are within the summation bound of the CPU's, which adds in row order:
+    any order of n_g additions is within (n_g - 1) u sum|v| of the exact
+    sum (u = 2^-53), so two orders differ by at most twice that."""
+    rng = np.random.default_rng(5)
+    n, G = 1 << 20, 1000
+    k = rng.integers(0, G, n).astype(np.int64)
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 9, n)
+    aggs = [("v", "sum"), ("v", "mean"), ("v", "variance")]
+    names = [f"v_{f}" for _, f in aggs]
+    b, c = (pt.record_batch({"k": k, "v": v, "g": k.astype(np.int32)},
+                            device=d) for d in (cuda, "cpu"))
+    pipe = pt.PipelineBuilder().group_by(["k"], aggs).compile()
+    runs = {
+        "eager": lambda x: [pt.group_by(x, ["k"], aggs)[n].data
+                            for n in ["k"] + names],
+        "compiled": lambda x: [pipe(x)[n].data for n in ["k"] + names],
+        "hash_sum": lambda x: [torch.arange(G, device=x["k"].data.device),
+                               pt.call_function("hash_sum",
+                                                [x["v"], x["g"]]).data]}
+    counts = np.bincount(k, minlength=G)
+    abs_sum = np.bincount(k, np.abs(v), minlength=G)
+    for label, run in runs.items():
+        first, second = run(b), run(b)
+        for x, y in zip(first, second):
+            assert torch.equal(x.view(torch.int64), y.view(torch.int64)), \
+                label
+        keys = first[0].cpu().numpy()
+        got = first[1].cpu().numpy()
+        want = dict(zip(run(c)[0].numpy(), run(c)[1].numpy()))
+        want = np.array([want[x] for x in keys])
+        bound = 2 * (counts[keys] - 1) * 2.0 ** -53 * abs_sum[keys]
+        assert np.all(np.abs(got - want) <= bound), label
+
+
+def test_compiled_float_group_by_adds_no_host_sync(cuda):
+    """The compiled pipeline's trace, float sums and NaN-skipping min/max
+    included, makes no host synchronisation: torch's sync debug mode
+    raises at each one it detects."""
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    b = pt.record_batch({"k": rng.integers(0, 100, n).astype(np.int64),
+                         "f": rng.standard_normal(n),
+                         "i": rng.integers(-100, 100, n).astype(np.int64)},
+                        device=cuda)
+    aggs = [(c, f) for c in ("f", "i")
+            for f in ("sum", "mean", "variance", "min", "max")]
+    pipe = pt.PipelineBuilder().group_by(["k"], aggs).compile()
+    pipe._trace(b)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe._trace(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

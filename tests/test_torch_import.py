@@ -4,6 +4,7 @@ CPU, and builds its kernels only when they are first called."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -153,6 +154,18 @@ def test_build_is_keyed_on_sources_and_needs_nvcc(monkeypatch, tmp_path):
         assert path == build.library_path(src)   # deterministic
     assert build.library_path(build.SOURCES[0]) != \
         build.library_path(build.SOURCES[1])
+    # the operator library is keyed on each of its two sources
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    keys = {build.library_path(build.OPS)}
+    for src in build.OPS_SOURCES:
+        with open(csrc / src, "a") as f:
+            f.write("\n// changed\n")
+        keys.add(build.library_path(build.OPS))
+    assert len(keys) == 1 + len(build.OPS_SOURCES)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
@@ -183,6 +196,17 @@ def test_operator_library_is_built_against_torch(monkeypatch):
     assert cmd[cmd.index("-o") + 1] == str(out)
     plain = build.command("nvcc", "probes.cu", out)
     assert not any(a.startswith(("-I", "-l", "-D")) for a in plain)
+    # the library registers the four operator probes; probes.cu keeps a C
+    # entry for each of the other two only
+    host = (build.CSRC / "probe_ops.cpp").read_text()
+    assert sorted(re.findall(r'm\.def\("(\w+)\(', host)) == sorted(
+        probes.PROBES[name][0] for name in probes.OPERATORS)
+    ctypes_entries = re.findall(r"^int (a1t_\w+)\(",
+                                (build.CSRC / "probes.cu").read_text(),
+                                re.MULTILINE)
+    assert ctypes_entries == [entry for name, (entry, _) in
+                              probes.PROBES.items()
+                              if name not in probes.OPERATORS]
     before = build.library_path(build.OPS)
     monkeypatch.setattr(torch, "__version__", "0.0.0")
     assert build.library_path(build.OPS) != before
