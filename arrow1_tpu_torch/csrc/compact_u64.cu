@@ -8,19 +8,11 @@
 // on the MXU and flushes aligned 1024-row tiles from a VMEM carry, because
 // Mosaic has no cumsum and no exact 64-bit route, and its grid steps run
 // one after another. Hopper's blocks run in no order, so the carried
-// (base, rem) becomes a single-pass decoupled look-back over tiles:
-//
-//   1. a block takes its tile from an atomic ticket, not from blockIdx, so
-//      it only ever waits on tiles whose blocks already run: no deadlock,
-//      whatever the schedule;
-//   2. it counts its kept rows with warp ballots and publishes the count
-//      as (flag AGGREGATE, count), flag and value packed in ONE 64-bit
-//      word, stored with release semantics;
-//   3. its first warp reads the words of the 32 tiles before it with
-//      acquire loads (never hoisted out of the spin loop), until one of
-//      them holds an inclusive prefix, publishes its own inclusive prefix,
-//      and the block stores each kept row at prefix + rank;
-//   4. the last tile writes the total count.
+// (base, rem) becomes a single-pass decoupled look-back over tiles
+// (lookback.cuh): a block takes its tile from an atomic ticket, counts its
+// kept rows with warp ballots, gets its exclusive prefix from
+// lookback::publish and stores each kept row at prefix + rank; the last
+// tile writes the total count.
 //
 // Bound on the H100: memory bytes. The least traffic is one read of the
 // mask (1 byte a row) and of every column (8 bytes a row) and one write of
@@ -32,7 +24,11 @@
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+namespace lookback = a1t::lookback;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -41,63 +37,11 @@ constexpr int kTileRows = kThreads * kSteps;     // 4096 rows a tile
 constexpr int kMaxCols = 32;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// status word: flag in the top two bits, the count or prefix below
-constexpr unsigned long long kFlagAggregate = 1ull << 62;
-constexpr unsigned long long kFlagInclusive = 2ull << 62;
-constexpr unsigned long long kValueMask = (1ull << 62) - 1;
-
 struct ColumnSet {  // passed by value: 516 bytes of kernel parameters
   const unsigned long long* src[kMaxCols];
   unsigned long long* dst[kMaxCols];
   int ncols;
 };
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
-// The exclusive prefix of `tile`, by the first warp, once `aggregate` (this
-// tile's count) is published. Lane i looks at tile - 1 - i - window.
-__device__ __forceinline__ long long look_back(
-    unsigned long long* status, long long tile, long long aggregate) {
-  const int lane = threadIdx.x & 31;
-  long long exclusive = 0;
-  long long last = tile - 1;  // the nearest predecessor not yet summed
-  while (true) {
-    const long long j = last - lane;
-    unsigned long long word = kFlagInclusive;  // before tile 0: prefix 0
-    if (j >= 0) {
-      do {
-        word = load_acquire(status + j);
-      } while ((word >> 62) == 0);
-    }
-    const unsigned incl = __ballot_sync(kFullWarp,
-                                        (word >> 62) == (kFlagInclusive >> 62));
-    // sum the lanes up to and including the nearest inclusive one
-    const int stop = incl ? __ffs(incl) - 1 : 31;
-    long long v = lane <= stop ? static_cast<long long>(word & kValueMask) : 0;
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFullWarp, v, d);
-    exclusive += v;
-    if (incl) break;
-    last -= 32;
-  }
-  if (lane == 0) {
-    store_release(status + tile,
-                  kFlagInclusive | static_cast<unsigned long long>(
-                                       exclusive + aggregate));
-  }
-  return exclusive;
-}
 
 __global__ void __launch_bounds__(kThreads)
 compact_u64_kernel(const uint8_t* __restrict__ mask, long long n,
@@ -137,21 +81,7 @@ compact_u64_kernel(const uint8_t* __restrict__ mask, long long n,
     }
     for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(kFullWarp, c, d);
     const long long aggregate = c;
-    long long exclusive = 0;
-    if (tile == 0) {
-      if (lane == 0) {
-        store_release(status, kFlagInclusive |
-                                  static_cast<unsigned long long>(aggregate));
-      }
-    } else {
-      if (lane == 0) {
-        store_release(status + tile,
-                      kFlagAggregate |
-                          static_cast<unsigned long long>(aggregate));
-      }
-      __syncwarp();
-      exclusive = look_back(status, tile, aggregate);
-    }
+    const long long exclusive = lookback::publish(status, tile, aggregate);
     if (lane == 0) {
       s_exclusive = exclusive;
       if (tile == ntiles - 1) *count = static_cast<int>(exclusive + aggregate);

@@ -27,7 +27,7 @@ from typing import Iterable
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "OPS",
            "OPS_SOURCES", "TARGETS", "library_path", "command", "build",
-           "load", "load_ops"]
+           "load", "load_ops", "aligned"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -149,3 +149,11 @@ def load_ops() -> None:
 
     build([OPS])
     torch.ops.load_library(str(library_path(OPS)))
+
+
+def aligned(t, nbytes: int):
+    """``t`` contiguous, copied to a fresh allocation only where its
+    address is not a multiple of ``nbytes`` (a view at an odd offset):
+    the kernels' vector loads need the alignment."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()

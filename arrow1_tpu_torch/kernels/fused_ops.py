@@ -14,8 +14,9 @@ key and v are int64, f is float64, ``thresh`` goes to the kernel as a C
 double and ``vthr`` as a 64-bit integer, so no parameter packing can
 overflow.
 
-On CUDA tensors it launches ``csrc/fused_filter_project.cu``; on CPU
-tensors it runs ``filter_project_plain``. Inputs that are not tensors are
+On CUDA tensors it launches ``csrc/fused_filter_project.cu`` (one pass
+over tiles staged in shared memory, placed by a decoupled look-back); on
+CPU tensors it runs ``filter_project_plain``. Inputs that are not tensors are
 placed on CUDA, which must then be present.
 """
 
@@ -42,11 +43,10 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_double, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.a1t_filter_project_rows_per_block.restype = ctypes.c_int64
-    return fn, lib.a1t_filter_project_rows_per_block()
+    lib.a1t_filter_project_tile_rows.restype = ctypes.c_int64
+    return fn, lib.a1t_filter_project_tile_rows()
 
 
 def _inputs(key, v, f):
@@ -108,14 +108,17 @@ def filter_project_flagship(key, v, f, thresh: float, vthr: int,
         return key_out, proj_out, torch.zeros((), dtype=torch.int64,
                                               device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    fn, rows_per_block = _kernel()
-    nblocks = -(-n // rows_per_block)
-    scratch = torch.empty(2 * nblocks, dtype=torch.int64, device=dev)
-    key, v, f = key.contiguous(), v.contiguous(), f.contiguous()
+    fn, tile_rows = _kernel()
+    # the tile status words and the ticket, zeroed by the kernel's launcher
+    status = torch.empty(-(-n // tile_rows) + 1, dtype=torch.int64,
+                         device=dev)
+    # the kernel stages any 8-byte-aligned column (16-byte copies where
+    # the address allows, 8-byte ones elsewhere)
+    key, v, f = (build.aligned(x, 8) for x in (key, v, f))
     err = fn(key.data_ptr(), v.data_ptr(), f.data_ptr(), n, float(thresh),
              int(vthr), key_out.data_ptr(), proj_out.data_ptr(), out_len,
-             scratch.data_ptr(), scratch[nblocks:].data_ptr(),
-             count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             status.data_ptr(), count.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"filter+project kernel launch failed: CUDA "
                            f"error {err}")

@@ -15,7 +15,9 @@ probe_ops.cu and probe_ops.cpp), then:
    validity stream, and times kernel, plain version and library call
    (boolean-mask indexing per column) with CUDA events;
 3. holds the fused filter+project kernel (K1) against its plain version
-   at 10M rows of bench.py's data recipe, selectivities 0.25 and 0.5;
+   at 10M rows of bench.py's data recipe, selectivities 0.01, 0.25, 0.5
+   and 0.99, and on a view one row in (8 bytes off 16-byte alignment),
+   and times each with its share of the HBM bound;
 4. drives the main path through the entry points a user calls: the
    entry pipeline (filter -> project -> group_by -> sort, materialized)
    at 10M rows with 1K groups and with ~1M groups (max_groups = 2^20, the
@@ -25,9 +27,15 @@ probe_ops.cu and probe_ops.cpp), then:
    oracle. The K2 calls the pipeline made are captured in a separate,
    uncounted run and replayed against the plain version and timed;
 5. holds the group accumulators against their plain versions at 10M
-   rows: K3 (segment_sums) bit for bit at G = 1024 and 131072 (the
-   shared-memory and the global-atomic forms) over a live-masked int64
-   column with 10% nulls, an unmasked int64 column and 5% dead rows; segsum
+   rows: K3 (segment_sums) bit for bit over a live-masked int64 column
+   with 10% nulls, an unmasked int64 column and 5% dead rows, at G = 1024
+   (every CTA holds all groups), the first G past one CTA's shared memory
+   (a two-CTA cluster shares them), 100096 (the group_by phase's padded
+   G) and 131072 (an eight-CTA cluster shares them), at G = 1024 with
+   every row in one group, and at G = 131072 over three masked columns
+   and the unmasked one (four count slots: no cluster holds them, so rows
+   add straight into the output with global atomics); each must be in its
+   regime, and prints it with bytes/s and share of the bound; segsum
    v1 (segment_sum_count) at G = 4096 with exact counts and sums within
    1e-5 of each group's sum of |v| of a float64 index_add_ (the plain
    version is held to the same bound). Kernel, plain version and library
@@ -348,36 +356,62 @@ def _vthr(sel):
     return int((1.0 - 2.0 * min(2.0 * sel, 1.0)) * (1 << 30))
 
 
+def _predicate(sel, f_host):
+    """(thresh, vthr) keeping a share ``sel`` of the flagship rows:
+    bench.py's recipe up to 0.5, above it f's (1 - sel) quantile with
+    every v kept."""
+    if sel <= 0.5:
+        return 0.0, _vthr(sel)
+    return float(np.quantile(f_host, 1.0 - sel)), -(1 << 30) - 1
+
+
+def _check_fused(fused, key, v, f, thresh, vthr, label):
+    ko, po, c = fused.filter_project_flagship(key, v, f, thresh, vthr)
+    pk, pp, pc = fused.filter_project_plain(key, v, f, thresh, vthr)
+    k = int(pc)
+    if int(c) != k or not torch.equal(ko[:k], pk[:k]) or \
+            not torch.equal(_bits(po[:k]), _bits(pp[:k])):
+        raise AssertionError(f"K1 differs from plain ({label})")
+    return k, max(_max_abs_err(ko[:k], pk[:k]), _max_abs_err(po[:k], pp[:k]))
+
+
 def phase_fused(fused, dev, peak):
-    key, v, f = (torch.from_numpy(a).to(dev) for a in _flagship_data(N_BIG))
+    host_data = _flagship_data(N_BIG)
+    key, v, f = (torch.from_numpy(a).to(dev) for a in host_data)
     err = 0.0
     rows = {}
-    for sel in (0.25, 0.5):
-        vthr = _vthr(sel)
-        ko, po, c = fused.filter_project_flagship(key, v, f, 0.0, vthr)
-        pk, pp, pc = fused.filter_project_plain(key, v, f, 0.0, vthr)
-        k = int(pc)
-        if int(c) != k or not torch.equal(ko[:k], pk[:k]) or \
-                not torch.equal(_bits(po[:k]), _bits(pp[:k])):
-            raise AssertionError(f"K1 differs from plain at sel {sel}")
-        err = max(err, _max_abs_err(ko[:k], pk[:k]),
-                  _max_abs_err(po[:k], pp[:k]))
+    for sel in (0.01, 0.25, 0.5, 0.99):
+        thresh, vthr = _predicate(sel, host_data[2])
+        k, e = _check_fused(fused, key, v, f, thresh, vthr, f"sel {sel}")
+        err = max(err, e)
         ms = _time_ms(lambda: fused.filter_project_flagship(
-            key, v, f, 0.0, vthr))
+            key, v, f, thresh, vthr))
         plain_ms = _time_ms(lambda: fused.filter_project_plain(
-            key, v, f, 0.0, vthr))
+            key, v, f, thresh, vthr))
         nbytes = N_BIG * 24 + k * 16   # read key, v, f; write kept rows
         bound = nbytes / peak * 1e3
         print(f"K1 flagship 10M sel {sel} (kept {k}): bit-equal; kernel "
               f"{ms:.4f} ms = {N_BIG / ms * 1e3:.4g} rows/s, "
-              f"{nbytes / ms * 1e3:.4g} B/s = {bound / ms:.1%} of HBM; "
-              f"plain {plain_ms:.4f} ms", flush=True)
+              f"{nbytes / ms * 1e3:.4g} B/s = {bound / ms:.1%} of HBM "
+              f"(bound {bound:.4f} ms); plain {plain_ms:.4f} ms",
+              flush=True)
         host = _host_us(lambda: fused.filter_project_flagship(
-            key, v, f, 0.0, vthr))
+            key, v, f, thresh, vthr))
         print(f"K1 flagship 10M sel {sel}: host {host:.2f} us per call "
               f"({HOST_CALLS} back to back)", flush=True)
         rows[sel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          host_us=host)
+    # a view one row in: 8 bytes off the 16-byte alignment of the copies
+    views = (key[1:], v[1:], f[1:])
+    thresh, vthr = _predicate(0.5, host_data[2])
+    k, e = _check_fused(fused, *views, thresh, vthr, "misaligned view")
+    err = max(err, e)
+    ms = _time_ms(lambda: fused.filter_project_flagship(*views, thresh,
+                                                        vthr))
+    bound = ((N_BIG - 1) * 24 + k * 16) / peak * 1e3
+    print(f"K1 flagship 10M - 1 rows, a view one row in (address % 16 = "
+          f"{views[0].data_ptr() % 16}), sel 0.5: bit-equal; kernel "
+          f"{ms:.4f} ms = {bound / ms:.1%} of HBM", flush=True)
     return err, rows
 
 
@@ -428,9 +462,9 @@ def _int_err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def _k3_inputs(n, G, dev, seed):
-    """gid with 5% dead rows (gid == G), a live-masked int64 column with
-    10% nulls and an unmasked int64 column."""
+def _k3_inputs(n, G, dev, seed, masked=1):
+    """gid with 5% dead rows (gid == G), `masked` live-masked int64
+    columns with 10% nulls and an unmasked int64 column."""
     rng = np.random.default_rng(seed)
     gid = np.where(rng.random(n) < 0.05, G,
                    rng.integers(0, G, n)).astype(np.int32)
@@ -438,7 +472,13 @@ def _k3_inputs(n, G, dev, seed):
     live = rng.random(n) >= 0.1
     b = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
     t = [torch.from_numpy(x).to(dev) for x in (gid, a, live, b)]
-    return t[0], [(t[1], t[2]), (t[3], None)]
+    cols = [(t[1], t[2])]
+    for _ in range(masked - 1):
+        x = rng.integers(-(1 << 62), 1 << 62, n).astype(np.int64)
+        m = rng.random(n) >= 0.1
+        cols.append((torch.from_numpy(x).to(dev),
+                     torch.from_numpy(m).to(dev)))
+    return t[0], cols + [(t[3], None)]
 
 
 def _k3_library(gid, cols, G):
@@ -461,40 +501,64 @@ def _k3_library(gid, cols, G):
     return run
 
 
+def _check_k3(segsum2, gid, cols, G, label):
+    occ, res = segsum2.segment_sums(gid, cols, G)
+    occ_p, res_p = segsum2.segment_sums_plain(gid, cols, G)
+    if not torch.equal(occ, occ_p):
+        raise AssertionError(f"K3 occupancy differs from plain, {label}")
+    err = _int_err(occ, occ_p)
+    for (c, s), (cp, sp) in zip(res, res_p):
+        if not torch.equal(c, cp) or (s is None) != (sp is None) or \
+                (s is not None and not torch.equal(s, sp)):
+            raise AssertionError(f"K3 differs from plain, {label}")
+        err = max(err, _int_err(c, cp), 0.0 if s is None else _int_err(s, sp))
+    return err
+
+
 def phase_segment_sums(segsum2, dev, peak):
-    """K3 against its plain version at 10M rows; returns (error, row of
-    the G = 1024 shape, the main path's)."""
+    """K3 against its plain version at 10M rows, in each regime; returns
+    (error, the G = 1024 row, the main path's)."""
     err, row = 0.0, None
-    for G in (1024, 131072):
-        gid, cols = _k3_inputs(N_BIG, G, dev, seed=G)
-        occ, res = segsum2.segment_sums(gid, cols, G)
-        occ_p, res_p = segsum2.segment_sums_plain(gid, cols, G)
-        if not torch.equal(occ, occ_p):
-            raise AssertionError(f"K3 occupancy differs from plain, G={G}")
-        err = max(err, _int_err(occ, occ_p))
-        for (c, s), (cp, sp) in zip(res, res_p):
-            if not torch.equal(c, cp) or (s is None) != (sp is None) or \
-                    (s is not None and not torch.equal(s, sp)):
-                raise AssertionError(f"K3 differs from plain, G={G}")
-            err = max(err, _int_err(c, cp),
-                      0.0 if s is None else _int_err(s, sp))
+    smem = segsum2._kernel()[1]
+    past_one_cta = smem // 24 + 1   # 2 count + 2 sum slots: 24 B a group
+    # (G, every row in one group, masked columns, the regime it must take)
+    for G, hot, masked, regime in ((1024, False, 1, "private"),
+                                   (past_one_cta, False, 1, "owned"),
+                                   (100_096, False, 1, "owned"),
+                                   (131_072, False, 1, "owned"),
+                                   (1024, True, 1, "private"),
+                                   (131_072, False, 3, "global")):
+        gid, cols = _k3_inputs(N_BIG, G, dev, seed=G, masked=masked)
+        if hot:   # every live row in one group
+            gid = torch.where(gid < G, 7, gid).to(torch.int32)
+        label = (f"G={G}{' one hot group' if hot else ''}"
+                 f"{f', {masked} masked columns' if masked > 1 else ''}")
+        err = max(err, _check_k3(segsum2, gid, cols, G, label))
+        slots = 1 + sum((m is not None) + (v is not None) for v, m in cols)
+        p = segsum2.plan(G, slots - sum(v is not None for v, _ in cols),
+                         sum(v is not None for v, _ in cols), smem)
+        if p.mode != regime:
+            raise AssertionError(f"K3 {label}: regime {p.mode}, expected "
+                                 f"{regime}")
         ms = _time_ms(lambda: segsum2.segment_sums(gid, cols, G))
         plain_ms = _time_ms(lambda: segsum2.segment_sums_plain(gid, cols, G))
         lib_ms = _time_ms(_k3_library(gid, cols, G))
-        slots = 1 + sum((m is not None) + (v is not None) for v, m in cols)
         nbytes = N_BIG * (4 + sum(8 * (v is not None) + (m is not None)
                                   for v, m in cols)) + G * 8 * slots
         bound = nbytes / peak * 1e3
-        print(f"K3 segment_sums 10M rows, G={G}, {slots} slots: bit-equal "
-              f"to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bincount+index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound / ms:.1%} of the HBM bound)", flush=True)
-        if G == 1024:
+        print(f"K3 segment_sums 10M rows, {label}, {slots} slots, regime "
+              f"{p.mode} (cluster {p.cluster}): bit-equal to plain; kernel "
+              f"{ms:.4f} ms = {nbytes / ms * 1e3:.4g} B/s = "
+              f"{bound / ms:.1%} of the HBM bound ({bound:.4f} ms); plain "
+              f"{plain_ms:.4f} ms, bincount+index_add_ {lib_ms:.4f} ms",
+              flush=True)
+        if G in (1024, 131_072) and not hot and masked == 1:
             host = _host_us(lambda: segsum2.segment_sums(gid, cols, G))
-            print(f"K3 segment_sums G={G}: host {host:.2f} us per call "
+            print(f"K3 segment_sums {label}: host {host:.2f} us per call "
                   f"({HOST_CALLS} back to back)", flush=True)
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound, host_us=host)
+            if G == 1024:
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound, host_us=host)
     return err, row
 
 
@@ -1572,7 +1636,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         _check_pipeline(out, want, label)
         per_run.append((label, wall, compaction.compact.launches - before))
-    for sel in (0.25, 0.5):
+    for sel in (0.25, 0.5):   # thresh 0.0 on f: bench.py's recipe
         fused_ops.filter_project_flagship(fkey, fv, ff, 0.0, _vthr(sel))
     torch.cuda.synchronize()
     launches = {kern.__name__: kern.launches for kern in kernels}

@@ -19,6 +19,7 @@ from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
                                                  compact_u64_plain)
 from arrow1_tpu_torch.kernels.compaction_split import (compact_split,
                                                        compact_split_plain)
+from arrow1_tpu_torch.kernels import fused_ops, segsum2
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
 from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
@@ -91,6 +92,91 @@ def test_fused_kernel_matches_plain(cuda, n, vthr):
     assert torch.equal(_bits(pout[:k]), _bits(pp[:k]))
 
 
+def _check_fused(got, want):
+    (kout, pout, count), (pk, pp, pc) = got, want
+    k = int(pc)
+    assert int(count) == k
+    m = min(k, kout.shape[0])
+    assert kout.shape == pk.shape
+    assert torch.equal(kout[:m], pk[:m])
+    assert torch.equal(_bits(pout[:m]), _bits(pp[:m]))
+
+
+def _fused_inputs(n, seed, dev):
+    """key and v over the whole int64 range (both extremes present), f
+    uniform in [0, 1) with 10% NaN."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64,
+                       endpoint=True)
+    v = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64,
+                     endpoint=True)
+    v[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max][:n]
+    f = rng.random(n)
+    f[rng.random(n) < 0.1] = np.nan
+    return [torch.from_numpy(x).to(dev) for x in (key, v, f)]
+
+
+# rows around the kernel's tile (one tile - 1, one, one + 1) and many tiles
+@pytest.mark.parametrize("size", ["1", "tile-1", "tile", "tile+1", "3M"])
+@pytest.mark.parametrize("sel", [0.0, 0.01, 0.5, 1.0])
+def test_fused_one_pass_matches_plain(cuda, size, sel):
+    tile = fused_ops._kernel()[1]
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "3M": 3_000_017}[size]
+    key, v, f = _fused_inputs(n, n, cuda)
+    # f > 1 - sel keeps a share sel of the non-NaN rows; v > int64 min
+    # all but the one row at the minimum
+    args = (key, v, f, 1.0 - sel, -(1 << 63))
+    before = filter_project_flagship.launches
+    got = filter_project_flagship(*args)
+    assert filter_project_flagship.launches == before + 1
+    _check_fused(got, filter_project_plain(*args))
+
+
+@pytest.mark.parametrize("vthr", [-(1 << 63), (1 << 63) - 1])
+def test_fused_extreme_vthr_and_nan(cuda, vthr):
+    key, v, f = _fused_inputs(100_003, 3, cuda)
+    args = (key, v, f, float("-inf"), vthr)   # NaN rows fail f > -inf
+    got = filter_project_flagship(*args)
+    _check_fused(got, filter_project_plain(*args))
+    assert int(got[2]) == (0 if vthr > 0 else
+                           int((~torch.isnan(f) & (v > vthr)).sum()))
+
+
+def test_fused_out_limit_below_count(cuda):
+    key, v, f = _fused_inputs(1_000_003, 4, cuda)
+    args = (key, v, f, 0.25, -(1 << 63))
+    count = int(filter_project_plain(*args)[2])
+    for limit in (0, 1, count // 3, count - 1):
+        got = filter_project_flagship(*args, out_limit=limit)
+        assert got[0].shape == (limit,)
+        _check_fused(got, filter_project_plain(*args, out_limit=limit))
+
+
+@pytest.mark.parametrize("which", ["all", "f"])
+def test_fused_misaligned_view(cuda, which):
+    """Views one row in: 8 bytes off 16-byte alignment, staged with 8-byte
+    copies; all three columns, or only f."""
+    key, v, f = _fused_inputs(200_001, 5, cuda)
+    views = ([x[1:] for x in (key, v, f)] if which == "all"
+             else [key[:-1], v[:-1], f[1:]])
+    assert views[2].data_ptr() % 16 == 8
+    args = (*views, 0.5, -(1 << 62))
+    _check_fused(filter_project_flagship(*args), filter_project_plain(*args))
+
+
+def test_fused_back_to_back_calls(cuda):
+    """50 calls with no synchronise between them: each zeroes its own
+    ticket and tile status words on the stream."""
+    key, v, f = _fused_inputs(300_007, 6, cuda)
+    sels = [0.1 + 0.8 * i / 49 for i in range(50)]
+    outs = [filter_project_flagship(key, v, f, 1.0 - s, -(1 << 63))
+            for s in sels]
+    for s, got in zip(sels, outs):
+        _check_fused(got, filter_project_plain(key, v, f, 1.0 - s,
+                                               -(1 << 63)))
+
+
 @pytest.mark.parametrize("ngroups,max_groups", [(64, 65536),
                                                 (100_000, 1 << 17)])
 def test_pipeline_on_card_matches_cpu(cuda, ngroups, max_groups):
@@ -127,8 +213,9 @@ def _segsum_cols(rng, n, ncols, dev):
     return cols
 
 
-# G: one group, shared memory (1000, 4096), global atomics (20000 with many
-# slots, 131072); 40 columns take two launches of the kernel's 32
+# G: one group, every CTA holding all groups (1000, 4096), a cluster
+# sharing them out (20000 with 3 count and 2 sum slots, 131072); 40
+# columns take two launches of the kernel's 32
 @pytest.mark.parametrize("G,ncols", [(1, 3), (1000, 4), (4096, 2),
                                      (20000, 4), (131072, 4), (1000, 40)])
 @pytest.mark.parametrize("n", [1, 100_003])
@@ -147,6 +234,84 @@ def test_segment_sums_kernel_matches_plain(cuda, G, ncols, n):
         assert (s is None) == (sp is None)
         if s is not None:
             assert torch.equal(s, sp)
+
+
+def _check_segsum(gid, cols, G):
+    before = segment_sums.launches
+    occ, res = segment_sums(gid, cols, G)
+    assert segment_sums.launches == before + 1
+    occ_p, res_p = segment_sums_plain(gid, cols, G)
+    assert torch.equal(occ, occ_p)
+    for (c, s), (cp, sp) in zip(res, res_p):
+        assert torch.equal(c, cp)
+        assert (s is None) == (sp is None)
+        if s is not None:
+            assert torch.equal(s, sp)
+
+
+def _segsum_regime_G(where):
+    """G on either side of a regime boundary for two columns (a masked
+    sum, an unmasked sum: 2 count and 2 sum slots), from the planner and
+    the card's shared memory, with the regime expected there."""
+    smem = segsum2._kernel()[1]
+    top = smem // 24                      # the most one CTA holds
+    per_cta = 1 << ((smem // 8).bit_length() - 1)   # counts a CTA owns
+    return {"private-top": (top, "private"),
+            "owned-bottom": (top + 1, "owned"),
+            "owned-2-top": (2 * per_cta, "owned"),
+            "owned-4": (2 * per_cta + 1, "owned"),
+            "owned-top": (segsum2.OWNED_MAX_CLUSTER * per_cta, "owned"),
+            "global-bottom": (segsum2.OWNED_MAX_CLUSTER * per_cta + 1,
+                              "global")}[where]
+
+
+@pytest.mark.parametrize("where", ["private-top", "owned-bottom",
+                                   "owned-2-top", "owned-4", "owned-top",
+                                   "global-bottom"])
+def test_segment_sums_regime_boundaries(cuda, where):
+    G, mode = _segsum_regime_G(where)
+    assert segsum2.plan(G, 2, 2, segsum2._kernel()[1]).mode == mode
+    rng = np.random.default_rng(G)
+    n = 1_000_003
+    gid = torch.from_numpy(rng.integers(-1, G + 2, n).astype(np.int32))
+    a = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n,
+                     dtype=np.int64)
+    live = rng.random(n) < 0.9
+    b = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    t = [torch.from_numpy(x).to(cuda) for x in (a, live, b)]
+    _check_segsum(gid.to(cuda), [(t[0], t[1]), (t[2], None)], G)
+
+
+@pytest.mark.parametrize("G", [1000, 100_096, 1 << 20])
+@pytest.mark.parametrize("case", ["hot", "dead", "wrap", "misaligned",
+                                  "cols40"])
+def test_segment_sums_inputs(cuda, G, case):
+    """One hot group holding every row; every row dead; values that wrap
+    past +-2^63; views off 16-byte alignment; 40 columns (two launches),
+    in each regime (two columns: private, owned, global)."""
+    rng = np.random.default_rng(G + len(case))
+    n = 400_003
+    gid = rng.integers(0, G, n).astype(np.int32)
+    if case == "hot":
+        gid[:] = G // 2
+    elif case == "dead":
+        gid = np.where(rng.random(n) < 0.5, -5, G + 3).astype(np.int32)
+    gid = torch.from_numpy(gid).to(cuda)
+    if case == "cols40":
+        cols = _segsum_cols(rng, n, 40, cuda)
+    else:
+        big = np.iinfo(np.int64).max - rng.integers(0, 1000, (2, n))
+        big[1] = -big[1]     # near +2^63 and near -2^63: the sums wrap
+        vals = (big if case == "wrap" else rng.integers(
+            -(1 << 62), 1 << 62, (2, n))).astype(np.int64)
+        live = rng.random(n) < 0.8
+        t = [torch.from_numpy(x).to(cuda) for x in (vals[0], vals[1], live)]
+        cols = [(t[0], t[2]), (t[1], None)]
+    if case == "misaligned":
+        gid = gid[1:]
+        cols = [(v[1:], None if m is None else m[1:]) for v, m in cols]
+        assert gid.data_ptr() % 16 and cols[0][0].data_ptr() % 16
+    _check_segsum(gid, cols, G)
 
 
 @pytest.mark.parametrize("G", [1, 256, 4096, 40_000])
