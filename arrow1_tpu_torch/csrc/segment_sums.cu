@@ -13,7 +13,19 @@
 // segsum v1, a1t_segment_sum_count, replaces
 // arrow1_tpu/kernels/segsum.py:segment_sum_count: f32 sums and f32 counts
 // of the live rows per group. Its sums depend on the order of the
-// atomics; its counts are exact below 2^24 per group.
+// atomics; its counts are exact below 2^24 per group. It carries K3's
+// private regime over to f32 (below): four rows a thread (16-byte loads
+// of ids and values, a 4-byte load of live bytes, the next four rows'
+// loads in flight while a thread adds), the same warp aggregation, counts
+// as native 32-bit shared adds widened at the flush, sums as f32 shared
+// adds (the H100 has no native one: the SASS is a compare-and-swap loop,
+// ATOMS.CAST.SPIN, which costs about a quarter of the kernel's time at
+// G = 4096; global f32 atomics, which are native, were five times slower
+// in all), and a cluster of CTAs adding its partials up over distributed
+// shared memory, so one global atomic per cluster per group and output
+// reaches the output. A G whose partials do not fit one CTA (8 bytes a
+// group) takes the global regime: every add a global atomic
+// (kernels/segsum.py:plan chooses).
 //
 // Bound on the H100: memory bytes. Each row reads its group id (4 bytes)
 // and, per column, a value (8 bytes) and a live byte; the outputs are a
@@ -55,16 +67,110 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // segsum v1
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The regimes (kernels/segsum2.py:MODES); v1 has no owned one.
+enum Mode : int { kPrivate = 0, kOwned = 1, kGlobal = 2 };
+
+// The sum of x over the lanes in `peers` (the lanes that hold one group),
+// in the lowest of them: a tree of shuffles, one step a level, none when
+// every lane's group is its own. All 32 lanes call it.
+template <typename T>
+__device__ __forceinline__ T sum_peers(unsigned peers, T x) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & ~((2u << lane) - 1u);
+  while (__any_sync(kFullWarp, above != 0)) {
+    const int next = above ? __ffs(above) - 1 : lane;
+    const T t = __shfl_sync(kFullWarp, x, next);
+    if (above) x += t;
+    // the lanes of odd rank have handed their sums down: drop them
+    above &= ~__ballot_sync(kFullWarp, rank & 1u);
+    rank >>= 1;
+  }
+  return x;
+}
+
+// The clusters of `cfg`'s shape that fit the card at once, asked of the
+// runtime once per kernel, device, cluster size and shared memory (a query
+// costs tens of microseconds a call); the kernel's shared-memory opt-in is
+// raised to the largest asked for, never lowered.
+template <auto kKernel>
+cudaError_t resident_clusters(const cudaLaunchConfig_t& cfg, int* resident) {
+  struct Fit {
+    int dev;
+    unsigned cluster;
+    size_t smem;
+    int resident;
+  };
+  static std::mutex mu;
+  static Fit seen[32];
+  static int nseen = 0;
+  static size_t smem_set[64] = {};  // the opt-in, by device
+  const std::lock_guard<std::mutex> lock(mu);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned cluster = cfg.attrs[0].val.clusterDim.x;
+  for (int i = 0; i < nseen; ++i) {
+    if (seen[i].dev == dev && seen[i].cluster == cluster &&
+        seen[i].smem == cfg.dynamicSmemBytes) {
+      *resident = seen[i].resident;
+      return cudaSuccess;
+    }
+  }
+  if (cfg.dynamicSmemBytes > 48 * 1024 &&
+      cfg.dynamicSmemBytes > smem_set[dev]) {
+    err = cudaFuncSetAttribute(kKernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cfg.dynamicSmemBytes));
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = cfg.dynamicSmemBytes;
+  }
+  err = cudaOccupancyMaxActiveClusters(resident, kKernel, &cfg);
+  if (err == cudaSuccess && nseen < 32) {
+    seen[nseen++] = {dev, cluster, cfg.dynamicSmemBytes, *resident};
+  }
+  return err;
+}
+
+// Launches kKernel(args...) over n rows, a quad of rows a thread a step,
+// in clusters of `cluster` CTAs of `threads` threads with `smem` bytes of
+// dynamic shared memory each: as many clusters as stay resident on the
+// card, no more than the rows need.
+template <auto kKernel, typename... Args>
+cudaError_t launch_resident(long long n, int cluster, int threads,
+                            size_t smem, cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int resident = 0;
+  cudaError_t err = resident_clusters<kKernel>(cfg, &resident);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const long long blocks = ((n + 3) / 4 + threads - 1) / threads;
+  const long long need = (blocks + cluster - 1) / cluster;
+  cfg.gridDim = dim3(static_cast<unsigned>(
+      (need < resident ? need : resident) * cluster));
+  err = cudaLaunchKernelEx(&cfg, kKernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 namespace k3 {
 
 constexpr int kThreads = 1024;
 constexpr int kMaxCols = 32;
 constexpr int kMaxCounts = kMaxCols + 1;
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-enum Mode : int { kPrivate = 0, kOwned = 1, kGlobal = 2 };
 
 struct Columns {  // passed by value: 1044 bytes of kernel parameters
   const int64_t* vals[kMaxCols];  // nullptr: count-only column
@@ -121,25 +227,6 @@ __device__ __forceinline__ Quad load_quad(const Columns& cs, int c,
   }
   if (vals == nullptr) {
     for (int j = 0; j < 4; ++j) x.v[j] = 0;
-  }
-  return x;
-}
-
-// The sum of x over the lanes in `peers` (the lanes that hold one group),
-// in the lowest of them: a tree of shuffles, one step a level, none when
-// every lane's group is its own. All 32 lanes call it.
-__device__ __forceinline__ unsigned long long sum_peers(
-    unsigned peers, unsigned long long x) {
-  const int lane = threadIdx.x & 31;
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & ~((2u << lane) - 1u);
-  while (__any_sync(kFullWarp, above != 0)) {
-    const int next = above ? __ffs(above) - 1 : lane;
-    const unsigned long long t = __shfl_sync(kFullWarp, x, next);
-    if (above) x += t;
-    // the lanes of odd rank have handed their sums down: drop them
-    above &= ~__ballot_sync(kFullWarp, rank & 1u);
-    rank >>= 1;
   }
   return x;
 }
@@ -332,140 +419,155 @@ segment_sums_kernel(const int32_t* __restrict__ gid, long long n, int G,
   if (kMode == kPrivate) cluster.sync();
 }
 
-// The clusters of `cfg`'s shape that fit the card at once, asked of the
-// runtime once per device, cluster size and shared memory (a query costs
-// tens of microseconds a call); the kernel's shared-memory opt-in is
-// raised to the largest asked for, never lowered.
-template <int kMode>
-cudaError_t resident_clusters(const cudaLaunchConfig_t& cfg, int* resident) {
-  struct Fit {
-    int dev;
-    unsigned cluster;
-    size_t smem;
-    int resident;
-  };
-  static std::mutex mu;
-  static Fit seen[32];
-  static int nseen = 0;
-  static size_t smem_set[64] = {};  // the opt-in, by device
-  const std::lock_guard<std::mutex> lock(mu);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned cluster = cfg.attrs[0].val.clusterDim.x;
-  for (int i = 0; i < nseen; ++i) {
-    if (seen[i].dev == dev && seen[i].cluster == cluster &&
-        seen[i].smem == cfg.dynamicSmemBytes) {
-      *resident = seen[i].resident;
-      return cudaSuccess;
-    }
-  }
-  auto kernel = segment_sums_kernel<kMode>;
-  if (cfg.dynamicSmemBytes > 48 * 1024 &&
-      cfg.dynamicSmemBytes > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(cfg.dynamicSmemBytes));
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = cfg.dynamicSmemBytes;
-  }
-  err = cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
-  if (err == cudaSuccess && nseen < 32) {
-    seen[nseen++] = {dev, cluster, cfg.dynamicSmemBytes, *resident};
-  }
-  return err;
-}
-
 template <int kMode>
 cudaError_t launch(long long n, int G, int cluster, int groups, int shift,
                    const int32_t* gid, const Columns& cs,
                    unsigned long long* out, cudaStream_t s) {
-  auto kernel = segment_sums_kernel<kMode>;
   const size_t smem =
       kMode == kGlobal ? 0
                        : static_cast<size_t>(groups) *
                              (8 * smem_sums<kMode>(cs) + 4 * cs.ncnt);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
-  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  // as many clusters as stay resident on the card, no more than the rows
-  // need (a warp's lane takes one quad of rows a step)
-  int resident = 0;
-  cudaError_t err = resident_clusters<kMode>(cfg, &resident);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorInvalidConfiguration;
-  const long long blocks = ((n + 3) / 4 + kThreads - 1) / kThreads;
-  const long long need = (blocks + cluster - 1) / cluster;
-  cfg.gridDim = dim3(static_cast<unsigned>(
-      (need < resident ? need : resident) * cluster));
-  err = cudaLaunchKernelEx(&cfg, kernel, gid, n, G, groups, shift, cs, out);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_resident<segment_sums_kernel<kMode>>(
+      n, cluster, kThreads, smem, s, gid, n, G, groups, shift, cs, out);
 }
 
 }  // namespace k3
 
-template <bool kPrivate>
-__global__ void __launch_bounds__(kThreads)
+namespace v1 {
+
+constexpr int kThreads = 1024;
+
+// Four consecutive rows: group ids (-1 past the end), values and live bits.
+struct Rows {
+  int g[4];
+  float v[4];
+  unsigned live;
+};
+
+__device__ __forceinline__ Rows load_rows(const int32_t* gid,
+                                          const float* vals,
+                                          const uint8_t* live, long long q,
+                                          long long n) {
+  Rows x;
+  if (4 * q + 4 <= n) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(gid) + q);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(vals) + q);
+    const uchar4 c = __ldg(reinterpret_cast<const uchar4*>(live) + q);
+    x.g[0] = a.x;
+    x.g[1] = a.y;
+    x.g[2] = a.z;
+    x.g[3] = a.w;
+    x.v[0] = b.x;
+    x.v[1] = b.y;
+    x.v[2] = b.z;
+    x.v[3] = b.w;
+    x.live = (c.x != 0) | (c.y != 0) << 1 | (c.z != 0) << 2 |
+             (c.w != 0) << 3;
+  } else {
+    x.live = 0;
+    for (int j = 0; j < 4; ++j) {
+      const long long row = 4 * q + j;
+      const bool in = row < n;
+      x.g[j] = in ? gid[row] : -1;
+      x.v[j] = in ? vals[row] : 0.f;
+      x.live |= static_cast<unsigned>(in && live[row] != 0) << j;
+    }
+  }
+  return x;
+}
+
+// private: per CTA, f32 sums of [0, G) then u32 counts of [0, G) in
+// shared memory, added up over the cluster at the end; global: every add
+// goes straight into the output.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
 segment_sum_count_kernel(const int32_t* __restrict__ gid,
                          const float* __restrict__ vals,
-                         const uint8_t* __restrict__ live, int64_t n,
-                         int64_t G, float* __restrict__ sums,
+                         const uint8_t* __restrict__ live, long long n,
+                         int G, float* __restrict__ sums,
                          float* __restrict__ counts) {
-  extern __shared__ float facc[];  // [sums G | counts G]
-  if (kPrivate) {
-    for (int64_t i = threadIdx.x; i < 2 * G; i += blockDim.x) facc[i] = 0.f;
-    __syncthreads();
+  extern __shared__ __align__(16) float part[];
+  float* psum = part;
+  unsigned* pcnt = reinterpret_cast<unsigned*>(part + G);
+  if (kMode == kPrivate) {
+    for (int i = threadIdx.x; i < 2 * G; i += kThreads) part[i] = 0.f;
+    // every CTA's partials are zero before any CTA of the cluster flushes
+    cg::this_cluster().sync();
   }
-  float* s = kPrivate ? facc : sums;
-  float* c = kPrivate ? facc + G : counts;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       row < n; row += stride) {
-    const int64_t g = gid[row];
-    if (g < 0 || g >= G || live[row] == 0) continue;
-    atomicAdd(&s[g], vals[row]);
-    atomicAdd(&c[g], 1.f);
-  }
-  if (kPrivate) {
-    __syncthreads();
-    for (int64_t i = threadIdx.x; i < G; i += blockDim.x) {
-      if (facc[G + i] != 0.f) {
-        atomicAdd(&sums[i], facc[i]);
-        atomicAdd(&counts[i], facc[G + i]);
+
+  const int lane = threadIdx.x & 31;
+  const long long nquads = (n + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  // a warp takes 32 consecutive quads; every lane of it runs every step
+  long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  Rows next = load_rows(gid, vals, live, q, n);
+  for (; q - lane < nquads; q += stride) {
+    const Rows cur = next;
+    // the next quad's loads are in flight while this one adds
+    next = load_rows(gid, vals, live, q + stride, n);
+    const int* g = cur.g;
+    const float* v = cur.v;
+    const unsigned m = cur.live;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // rows that are dead or out of range count nowhere
+      const int key = (m >> j & 1u) && g[j] >= 0 && g[j] < G ? g[j] : -1;
+      // K3's test: lanes 1 or 16 apart that hold one group trip it, and
+      // only then do the lanes of each group add up first
+      const int k1 = __shfl_xor_sync(kFullWarp, key, 1);
+      const int k16 = __shfl_xor_sync(kFullWarp, key, 16);
+      unsigned peers = 1u << lane;
+      float s = v[j];
+      if (__any_sync(kFullWarp, key >= 0 && (key == k1 || key == k16))) {
+        peers = __match_any_sync(kFullWarp, key);
+        s = sum_peers(peers, key >= 0 ? v[j] : 0.f);
+      }
+      if (key >= 0 && lane == __ffs(peers) - 1) {
+        if (kMode == kPrivate) {
+          atomicAdd(psum + key, s);
+          atomicAdd(pcnt + key, static_cast<unsigned>(__popc(peers)));
+        } else {
+          atomicAdd(sums + key, s);
+          atomicAdd(counts + key, static_cast<float>(__popc(peers)));
+        }
       }
     }
   }
+
+  if (kMode != kPrivate) return;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every add of the cluster has landed
+  // CTA r adds up its share of the groups over the cluster
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int per = (G + ranks - 1) / ranks;
+  const int lo = static_cast<int>(cluster.block_rank()) * per;
+  const int hi = lo + per < G ? lo + per : G;
+  for (int g = lo + threadIdx.x; g < hi; g += kThreads) {
+    float s = 0.f;
+    unsigned long long c = 0;
+    for (int r = 0; r < ranks; ++r) {
+      s += *cluster.map_shared_rank(psum + g, r);
+      c += *cluster.map_shared_rank(pcnt + g, r);
+    }
+    if (c) {
+      atomicAdd(sums + g, s);
+      atomicAdd(counts + g, static_cast<float>(c));
+    }
+  }
+  // no CTA leaves while a peer may still read its shared memory
+  cluster.sync();
 }
 
-// Blocks for a grid-stride launch: as many as stay resident on the card
-// (by the occupancy calculator at this shared-memory size), no more than
-// the rows need.
-template <typename Kernel>
-int grid_for(Kernel kernel, int64_t n, size_t smem, cudaError_t* err) {
-  int dev = 0, sms = 0, per_sm = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err == cudaSuccess)
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kThreads, smem);
-  if (*err != cudaSuccess) return 0;
-  const int64_t need = (n + kThreads - 1) / kThreads;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm
-                                                                   : 1);
-  return static_cast<int>(need < resident ? need : resident);
+template <int kMode>
+cudaError_t launch(const int32_t* gid, const float* vals,
+                   const uint8_t* live, long long n, int G, int cluster,
+                   float* sums, float* counts, cudaStream_t s) {
+  const size_t smem = kMode == kPrivate ? 8 * static_cast<size_t>(G) : 0;
+  return launch_resident<segment_sum_count_kernel<kMode>>(
+      n, cluster, kThreads, smem, s, gid, vals, live, n, G, sums, counts);
 }
+
+}  // namespace v1
 
 // Shared memory a block may opt in to on the current device.
 cudaError_t smem_optin(size_t* bytes) {
@@ -559,34 +661,32 @@ int a1t_segment_sums(const int32_t* gid, int64_t n, int64_t G, int64_t mode,
   return static_cast<int>(err);
 }
 
-// segsum v1. gid: int32[n], vals: float32[n], live: bool[n]; rows with gid
-// outside [0, G) or not live count nowhere. sums and counts: zeroed
-// float32[G] on the device. n > 0, G > 0. Launches on `stream`, never
-// synchronises; returns the CUDA error code.
+// segsum v1. gid: int32[n] and vals: float32[n], both 16-byte aligned;
+// live: bool[n], 4-byte aligned; rows with gid outside [0, G) or not live
+// count nowhere. out: float32[2, G] on the device, sums then counts, which
+// the call zeroes first (a memset on the stream). n > 0, G > 0. mode and
+// cluster are kernels/segsum.py:plan's: private (0; a cluster of 1-8
+// CTAs, each holding 8 * G bytes of partials) or global (2; cluster 1).
+// Launches on `stream`, never synchronises; returns the CUDA error code.
 int a1t_segment_sum_count(const int32_t* gid, const float* vals,
                           const uint8_t* live, int64_t n, int64_t G,
-                          float* sums, float* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t optin = 0;
-  cudaError_t err = smem_optin(&optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = 2 * static_cast<size_t>(G) * sizeof(float);
-  const bool priv = smem <= optin;
-  void (*kernel)(const int32_t*, const float*, const uint8_t*, int64_t,
-                 int64_t, float*, float*) =
-      priv ? &segment_sum_count_kernel<true>
-           : &segment_sum_count_kernel<false>;
-  const size_t bytes = priv ? smem : 0;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+                          int64_t mode, int64_t cluster, float* out,
+                          void* stream) {
+  using namespace v1;
+  if (n <= 0 || G <= 0 || G > INT32_MAX / 2 || cluster < 1 ||
+      cluster > 8 || (mode != kPrivate && mode != kGlobal) ||
+      (mode == kGlobal && cluster != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = grid_for(kernel, n, bytes, &err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, 2 * G * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, s>>>(gid, vals, live, n, G, sums, counts);
-  return static_cast<int>(cudaGetLastError());
+  const int g = static_cast<int>(G);
+  const int c = static_cast<int>(cluster);
+  err = mode == kPrivate
+            ? launch<kPrivate>(gid, vals, live, n, g, c, out, out + G, s)
+            : launch<kGlobal>(gid, vals, live, n, g, c, out, out + G, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from .build import load
+from .build import aligned, load
 from .radix import _SIGN, sort_permutation
 
 __all__ = ["splitmix64", "table_bits_for", "HashTable", "hash_table_build",
@@ -301,13 +301,6 @@ def broadcast_probe_plain(build_sorted, probe
     return lo, cnt
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous tensor whose data starts on 16 bytes (the kernel's
-    vector loads); a view at an odd offset is copied."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def broadcast_probe(build_sorted, probe) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo int32[n], counts int32[n]) of each u64 probe key against a
     sorted u64 build array of at most BROADCAST_T_MAX keys: the number of
@@ -325,10 +318,11 @@ def broadcast_probe(build_sorted, probe) -> Tuple[torch.Tensor, torch.Tensor]:
     if n == 0 or T == 0:   # nothing to launch: every count is 0
         return (torch.zeros(n, dtype=torch.int32, device=probe.device),
                 torch.zeros(n, dtype=torch.int32, device=probe.device))
-    # the kernel writes every element
+    # the kernel writes every element, with 16-byte stores into these
+    # fresh allocations; its 16-byte loads want the inputs aligned too
     lo = torch.empty(n, dtype=torch.int32, device=probe.device)
     cnt = torch.empty(n, dtype=torch.int32, device=probe.device)
-    build, probe = _aligned(build), _aligned(probe)
+    build, probe = aligned(build, 16), aligned(probe, 16)
     err = _kernel()(build.data_ptr(), T, probe.data_ptr(), n, lo.data_ptr(),
                     cnt.data_ptr(),
                     torch.cuda.current_stream(probe.device).cuda_stream)

@@ -11,6 +11,10 @@ float32 rounding.
 
 On a CUDA tensor it launches the kernel in ``csrc/segment_sums.cu``; on a
 CPU tensor it runs ``segment_sum_count_plain``. Any other device raises.
+``plan`` chooses the kernel's regime from the shape alone: every CTA of a
+cluster holds partials of all G groups in shared memory and the cluster
+adds them up (``private``), or rows add straight into the output
+(``global``).
 """
 
 from __future__ import annotations
@@ -21,20 +25,32 @@ from typing import Tuple
 
 import torch
 
-from . import build
-from .segsum2 import SOURCE
+from . import build, segsum2
+from .segsum2 import MODES, SOURCE, Plan
 
-__all__ = ["segment_sum_count", "segment_sum_count_plain"]
+__all__ = ["segment_sum_count", "segment_sum_count_plain", "plan"]
+
+# CTAs that add up their private partials together: at G = 4096 a
+# cluster of 2 was faster than one of 4 or 8 (PERF.md)
+CLUSTER = 2
 
 
 @functools.cache
 def _kernel():
     fn = build.load(SOURCE).a1t_segment_sum_count
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 +
+                   [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan(G: int, smem_bytes: int) -> Plan:
+    """The regime of a launch over G groups where a CTA may use
+    ``smem_bytes`` of shared memory: ``private`` while one CTA holds an
+    f32 sum and a u32 count of every group, else ``global``."""
+    if 8 * G <= smem_bytes:
+        return Plan("private", CLUSTER, G)
+    return Plan("global", 1, G)
 
 
 def _check(gid, values, live, G) -> None:
@@ -76,19 +92,24 @@ def segment_sum_count(gid: torch.Tensor, values: torch.Tensor,
     if gid.device.type != "cuda":
         raise TypeError(f"segment_sum_count: no kernel for device "
                         f"{gid.device}")
-    sums = torch.zeros(G, dtype=torch.float32, device=gid.device)
-    counts = torch.zeros(G, dtype=torch.float32, device=gid.device)
     n = gid.shape[0]
-    if n:   # an empty grid is an invalid launch
-        g, v, m = (t.contiguous() for t in (gid, values, live))
-        err = _kernel()(g.data_ptr(), v.data_ptr(), m.data_ptr(), n, G,
-                        sums.data_ptr(), counts.data_ptr(),
-                        torch.cuda.current_stream(gid.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"segment_sum_count kernel launch failed: "
-                               f"CUDA error {err}")
-        segment_sum_count.launches += 1
-    return sums, counts
+    if not n:   # an empty grid is an invalid launch
+        out = torch.zeros((2, G), dtype=torch.float32, device=gid.device)
+        return out[0], out[1]
+    p = plan(G, segsum2.smem_bytes())
+    # 16-byte loads of ids and values, 4-byte loads of live bytes
+    g, v = build.aligned(gid, 16), build.aligned(values, 16)
+    m = build.aligned(live, 4)
+    # sums then counts; the C entry point zeroes it on the stream
+    out = torch.empty((2, G), dtype=torch.float32, device=gid.device)
+    err = _kernel()(g.data_ptr(), v.data_ptr(), m.data_ptr(), n, G,
+                    MODES[p.mode], p.cluster, out.data_ptr(),
+                    torch.cuda.current_stream(gid.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"segment_sum_count kernel launch failed: CUDA "
+                           f"error {err}")
+    segment_sum_count.launches += 1
+    return out[0], out[1]
 
 
 segment_sum_count.launches = 0

@@ -37,7 +37,7 @@ import torch
 from . import build
 
 __all__ = ["segment_sums", "segment_sums_plain", "plan", "Plan",
-           "launches", "MAX_G", "SOURCE"]
+           "launches", "smem_bytes", "MAX_G", "SOURCE"]
 
 SOURCE = "segment_sums.cu"
 # The dense-key group-by takes this path up to MAX_G groups, as the
@@ -55,21 +55,27 @@ Result = Tuple[torch.Tensor,
 
 
 @functools.cache
+def smem_bytes() -> int:
+    """The shared memory a CTA may opt in to on the current device."""
+    optin = ctypes.c_int64()
+    err = build.load(SOURCE).a1t_segment_sums_smem_optin(
+        ctypes.byref(optin))
+    if err:
+        raise RuntimeError(f"segment_sums: CUDA error {err} reading the "
+                           "shared-memory limit")
+    return optin.value
+
+
+@functools.cache
 def _kernel():
     """The launcher and the shared memory a CTA may opt in to."""
-    lib = build.load(SOURCE)
-    fn = lib.a1t_segment_sums
+    fn = build.load(SOURCE).a1t_segment_sums
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 6 +
                    [ctypes.c_void_p] * 4 + [ctypes.c_int64] +
                    [ctypes.c_void_p, ctypes.c_int64] * 2 +
                    [ctypes.c_int64] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    optin = ctypes.c_int64()
-    err = lib.a1t_segment_sums_smem_optin(ctypes.byref(optin))
-    if err:
-        raise RuntimeError(f"segment_sums: CUDA error {err} reading the "
-                           "shared-memory limit")
-    return fn, optin.value
+    return fn, smem_bytes()
 
 
 class Plan(NamedTuple):

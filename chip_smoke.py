@@ -38,8 +38,10 @@ probe_ops.cu and probe_ops.cpp), then:
    regime, and prints it with bytes/s and share of the bound; segsum
    v1 (segment_sum_count) at G = 4096 with exact counts and sums within
    1e-5 of each group's sum of |v| of a float64 index_add_ (the plain
-   version is held to the same bound). Kernel, plain version and library
-   call (torch.bincount and one index_add_ per output) are timed;
+   version is held to the same bound), with ids spread over the groups
+   and with every row in one group, each printed with its regime
+   (kernels/segsum.py:plan). Kernel, plain version and library call
+   (torch.bincount and one index_add_ per output) are timed;
 6. drives the eager group_by at BASELINE config 2, 10M rows, seed 0 (k in
    [0, G), v int64, w int32 with 10% nulls): sum/mean/count/sum at
    G = 1000 and 100000 on the dense-key path (one K3 launch each) and
@@ -56,12 +58,14 @@ probe_ops.cu and probe_ops.cpp), then:
    each wall;
 7. drives the small sorted-build probe (K4, broadcast_probe) through its
    entry point at benchmarks/r2's shapes (seed 6, 9,994,240 probes in
-   [0, 2^40), T in {256, 1024, 2048}) and on a second probe set (half the
-   probes drawn from a build with duplicate runs, keys above 2^63), with
-   its launch count set to 0 before and read after; holds it bit for bit
-   against its plain version, the port's sort-merge probe (lo, counts)
-   and the hash-table probe's counts, and times kernel, plain version and
-   library call (two torch.searchsorted);
+   [0, 2^40), T in {256, 1024, 2048}), on a second probe set (half the
+   probes drawn from a build with duplicate runs, keys above 2^63) and on
+   a clustered build (T = 2048: 2047 keys in a window 2^12 wide, and
+   2^64 - 1), with its launch count set to 0 before and read after; holds
+   it bit for bit against its plain version, the port's sort-merge probe
+   (lo, counts) and the hash-table probe's counts, and times kernel, plain
+   version and library call (two torch.searchsorted) on the r2 and
+   clustered sets;
 8. drives the eager join at BASELINE config 4 at full size (100M probe
    rows x 10M build rows, benchmarks/r5's recipe, seed 42): inner and
    left outer over uniform and skewed probe keys. Each leg must match a
@@ -562,54 +566,67 @@ def phase_segment_sums(segsum2, dev, peak):
     return err, row
 
 
-def phase_segment_sum_count(segsum, dev, peak):
-    """segsum v1 against its plain version at 10M rows, G = 4096."""
+def phase_segment_sum_count(segsum, segsum2, dev, peak):
+    """segsum v1 against its plain version at 10M rows, G = 4096, with ids
+    spread over the groups and with every row in one group. Returns (max
+    |kernel - plain| of the sums, row of the spread shape)."""
     G = 4096
     rng = np.random.default_rng(1)
-    gid = torch.from_numpy(np.where(rng.random(N_BIG) < 0.05, G,
-                                    rng.integers(0, G, N_BIG)).astype(
-        np.int32)).to(dev)
+    spread = rng.integers(0, G, N_BIG)
+    dead = rng.random(N_BIG) < 0.05
     val = torch.from_numpy(rng.standard_normal(N_BIG).astype(
         np.float32)).to(dev)
     live = torch.from_numpy(rng.random(N_BIG) >= 0.1).to(dev)
-    s, c = segsum.segment_sum_count(gid, val, live, G)
-    sp, cp = segsum.segment_sum_count_plain(gid, val, live, G)
-    keep = live & (gid < G)
-    idx = torch.where(keep, gid, G).long()
-    ref = torch.zeros(G + 1, dtype=torch.float64, device=dev).index_add_(
-        0, idx, torch.where(keep, val, 0.0).double())[:G]
-    abs_sum = torch.zeros(G + 1, dtype=torch.float64, device=dev).index_add_(
-        0, idx, torch.where(keep, val.abs(), 0.0).double())[:G]
-    if not torch.equal(c, cp):
-        raise AssertionError("v1 counts differ from plain")
-    for label, got in (("kernel", s), ("plain", sp)):
-        if not bool(((got.double() - ref).abs() <= 1e-5 * abs_sum).all()):
-            raise AssertionError(f"v1 {label} sums outside 1e-5 * sum|v| "
-                                 "of the float64 reference")
-    err = _max_abs_err(s, sp)
-    ms = _time_ms(lambda: segsum.segment_sum_count(gid, val, live, G))
-    plain_ms = _time_ms(lambda: segsum.segment_sum_count_plain(gid, val,
-                                                               live, G))
-    masked = torch.where(keep, val, 0.0)
+    path = segsum.plan(G, segsum2.smem_bytes()).mode
+    err, row = 0.0, None
+    for label, ids in (("spread", spread), ("one hot group", 0 * spread)):
+        gid = torch.from_numpy(np.where(dead, G, ids).astype(np.int32)).to(
+            dev)
+        s, c = segsum.segment_sum_count(gid, val, live, G)
+        sp, cp = segsum.segment_sum_count_plain(gid, val, live, G)
+        keep = live & (gid < G)
+        idx = torch.where(keep, gid, G).long()
+        ref = torch.zeros(G + 1, dtype=torch.float64,
+                          device=dev).index_add_(
+            0, idx, torch.where(keep, val, 0.0).double())[:G]
+        abs_sum = torch.zeros(G + 1, dtype=torch.float64,
+                              device=dev).index_add_(
+            0, idx, torch.where(keep, val.abs(), 0.0).double())[:G]
+        if not torch.equal(c, cp):
+            raise AssertionError(f"v1 counts differ from plain ({label})")
+        for name, got in (("kernel", s), ("plain", sp)):
+            if not bool(((got.double() - ref).abs()
+                         <= 1e-5 * abs_sum).all()):
+                raise AssertionError(f"v1 {name} sums outside 1e-5 * sum|v|"
+                                     f" of the float64 reference ({label})")
+        e = _max_abs_err(s, sp)
+        err = max(err, e)
+        ms = _time_ms(lambda: segsum.segment_sum_count(gid, val, live, G))
+        plain_ms = _time_ms(lambda: segsum.segment_sum_count_plain(
+            gid, val, live, G))
+        masked = torch.where(keep, val, 0.0)
 
-    def library():
-        return (torch.zeros(G + 1, dtype=torch.float32,
-                            device=dev).index_add_(0, idx, masked),
-                torch.bincount(idx, minlength=G + 1))
+        def library():
+            return (torch.zeros(G + 1, dtype=torch.float32,
+                                device=dev).index_add_(0, idx, masked),
+                    torch.bincount(idx, minlength=G + 1))
 
-    lib_ms = _time_ms(library)
-    nbytes = N_BIG * (4 + 4 + 1) + G * 4 * 2
-    bound = nbytes / peak * 1e3
-    print(f"v1 segment_sum_count 10M rows, G={G}: counts exact, sums "
-          f"within 1e-5 * sum|v| (max |kernel - plain| {err:.3g}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_+bincount "
-          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of the "
-          "HBM bound)", flush=True)
-    host = _host_us(lambda: segsum.segment_sum_count(gid, val, live, G))
-    print(f"v1 segment_sum_count G={G}: host {host:.2f} us per call "
-          f"({HOST_CALLS} back to back)", flush=True)
-    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bound, host_us=host)
+        lib_ms = _time_ms(library)
+        nbytes = N_BIG * (4 + 4 + 1) + G * 4 * 2
+        bound = nbytes / peak * 1e3
+        print(f"v1 segment_sum_count 10M rows, G={G}, {label} ({path}): "
+              f"counts exact, sums within 1e-5 * sum|v| (max |kernel - "
+              f"plain| {e:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, index_add_+bincount {lib_ms:.4f} ms, bound {bound:.4f} "
+              f"ms ({bound / ms:.1%} of the HBM bound)", flush=True)
+        if row is None:
+            host = _host_us(lambda: segsum.segment_sum_count(gid, val, live,
+                                                             G))
+            print(f"v1 segment_sum_count G={G}: host {host:.2f} us per "
+                  f"call ({HOST_CALLS} back to back)", flush=True)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, host_us=host)
+    return err, row
 
 
 DENSE_AGGS = [("v", "sum"), ("v", "mean"), ("w", "count"), ("w", "sum")]
@@ -834,7 +851,10 @@ def _k4_sets(dev):
     """benchmarks/r2/measure_r2.py op_broadcast's recipe (seed 6), and a
     second set per T (seed 7): a build of T keys drawn with repeats from
     T/4 keys over the whole u64 range (so half lie above 2^63), probes
-    half drawn from the build. Keys are int64 bit patterns."""
+    half drawn from the build; and a clustered set (seed 8): T - 1 keys
+    drawn with repeats from a window 2^12 wide, and 2^64 - 1, so that all
+    but one lie in one bucket of K4's directory, probes half drawn from
+    the build and half from the window. Keys are int64 bit patterns."""
     rng = np.random.default_rng(6)
     sets = []
     for T in K4_TS:
@@ -850,6 +870,16 @@ def _k4_sets(dev):
             rng.integers(0, 1 << 64, K4_N - K4_N // 2, dtype=np.uint64)])
         rng.shuffle(probe)
         sets.append((f"duplicates, high keys, T={T}", T, build, probe))
+    rng = np.random.default_rng(8)
+    T = K4_TS[-1]
+    base = np.uint64(rng.integers(0, 1 << 63))
+    window = base + rng.integers(0, 1 << 12, T - 1).astype(np.uint64)
+    build = np.sort(np.append(window, np.iinfo(np.uint64).max))
+    probe = np.concatenate([
+        rng.choice(build, K4_N // 2),
+        base + rng.integers(0, 1 << 12, K4_N - K4_N // 2).astype(np.uint64)])
+    rng.shuffle(probe)
+    sets.append((f"clustered T={T}", T, build, probe))
     return [(label, T, torch.from_numpy(b.view(np.int64)).to(dev),
              torch.from_numpy(p.view(np.int64)).to(dev))
             for label, T, b, p in sets]
@@ -890,7 +920,7 @@ def phase_broadcast_probe(pt, ht, padded, dev, peak, counted):
                                  f"probe ({label})")
         line = (f"K4 broadcast_probe {K4_N} probes, {label}: bit-equal to "
                 "plain, sort-merge and hash probes")
-        if label.startswith("r2"):
+        if not label.startswith("duplicates"):
             ms = _time_ms(lambda: ht.broadcast_probe(build, probe))
             plain_ms = _time_ms(lambda: ht.broadcast_probe_plain(build,
                                                                   probe))
@@ -902,7 +932,7 @@ def phase_broadcast_probe(pt, ht, padded, dev, peak, counted):
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"searchsorted x2 {lib_ms:.4f} ms, bound {bound:.4f} "
                      f"ms ({bound / ms:.1%} of the HBM bound)")
-            if T == 2048:
+            if label == f"r2 T={K4_TS[-1]}":
                 host = _host_us(lambda: ht.broadcast_probe(build, probe))
                 line += f"; host {host:.2f} us per call"
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1695,7 +1725,8 @@ def main() -> int:
 
     # ---- phases 5 and 6: group accumulators and the eager group_by ----
     k3_err, k3_row = phase_segment_sums(segsum2, dev, peak)
-    v1_err, v1_row = phase_segment_sum_count(segsum, dev, peak)
+    v1_err, v1_row = phase_segment_sum_count(segsum, segsum2, dev,
+                                             peak)
     gb_launches = phase_group_by(pt, dev, all_kernels)
     print(f"group_by main path launches: {gb_launches}", flush=True)
     if gb_launches["segment_sums"] != 2:

@@ -19,7 +19,7 @@ from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
                                                  compact_u64_plain)
 from arrow1_tpu_torch.kernels.compaction_split import (compact_split,
                                                        compact_split_plain)
-from arrow1_tpu_torch.kernels import fused_ops, segsum2
+from arrow1_tpu_torch.kernels import fused_ops, segsum, segsum2
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
 from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
@@ -314,15 +314,29 @@ def test_segment_sums_inputs(cuda, G, case):
     _check_segsum(gid, cols, G)
 
 
-@pytest.mark.parametrize("G", [1, 256, 4096, 40_000])
-def test_segment_sum_count_kernel_matches_plain(cuda, G):
+@pytest.mark.parametrize("G, case", [
+    (1, "spread"), (256, "spread"), (4096, "spread"), (40_000, "spread"),
+    (4096, "one hot group"), (4096, "all dead"), (4096, "view one row in"),
+    (None, "largest private G"), (None, "first G past shared memory")])
+def test_segment_sum_count_kernel_matches_plain(cuda, G, case):
+    smem = segsum2.smem_bytes()
+    if G is None:   # the regimes' boundary on this card
+        G = smem // 8 + (case.startswith("first"))
+    assert segsum.plan(G, smem).mode == ("private" if 8 * G <= smem
+                                         else "global")
     rng = np.random.default_rng(G)
     n = 200_003
-    gid = torch.from_numpy(rng.integers(0, G + 1, n).astype(np.int32)).to(
-        cuda)
+    ids = rng.integers(0, G + 1, n)
+    if case == "one hot group":
+        ids = np.where(ids < G, 0, G)
+    gid = torch.from_numpy(ids.astype(np.int32)).to(cuda)
     val = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
         cuda)
-    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    live = torch.from_numpy(rng.random(n) < (0.0 if case == "all dead"
+                                             else 0.9)).to(cuda)
+    if case == "view one row in":
+        gid, val, live = gid[1:], val[1:], live[1:]
+        assert gid.data_ptr() % 16 and val.data_ptr() % 16
     before = segment_sum_count.launches
     s, c = segment_sum_count(gid, val, live, G)
     assert segment_sum_count.launches == before + 1
@@ -362,27 +376,54 @@ def test_group_by_on_card_matches_cpu(cuda, aggs):
     assert got.to_pydict() == want.to_pydict()
 
 
-def _k4_keys(T, n, seed):
-    """A sorted u64 build with duplicate runs and keys at and above 2^63
-    (int64 bit patterns), the extremes 0 and 2^64 - 1, and probes half
-    drawn from the build."""
+U64_MAX = np.iinfo(np.uint64).max
+
+
+def _k4_keys(T, n, seed, kind):
+    """A sorted u64 build and probes half drawn from it (int64 bit
+    patterns). ``duplicates``: duplicate runs, keys at and above 2^63, and
+    the extremes 0 and 2^64 - 1; ``clustered``: T - 1 keys in a window
+    2^12 wide, and 2^64 - 1 (one bucket of the kernel's directory holds
+    all but one), probes from the window; ``all-equal``: one key T times;
+    ``high``: every key above 2^63. The first probes are 0, 2^64 - 1 and
+    2^63, then the keys on either side of each bucket boundary of the
+    kernel's directory (2^12 buckets over [build[0], build[-1]])."""
     rng = np.random.default_rng(seed)
-    distinct = rng.integers(0, 1 << 64, max(T // 3, 1), dtype=np.uint64)
-    build = np.sort(rng.choice(distinct, T))
-    if T > 2:
-        build[0], build[-1] = 0, np.iinfo(np.uint64).max
-    probe = np.concatenate([rng.choice(build, n // 2),
-                            rng.integers(0, 1 << 64, n - n // 2,
-                                         dtype=np.uint64)])
-    probe[:3] = [0, np.iinfo(np.uint64).max, 1 << 63]
+    if kind == "duplicates":
+        distinct = rng.integers(0, 1 << 64, max(T // 3, 1), dtype=np.uint64)
+        build = np.sort(rng.choice(distinct, T))
+        if T > 2:
+            build[0], build[-1] = 0, U64_MAX
+    elif kind == "clustered":
+        base = np.uint64(rng.integers(0, 1 << 63))
+        build = np.sort(np.append(
+            base + rng.integers(0, 1 << 12, T - 1).astype(np.uint64),
+            U64_MAX)[-T:])
+    elif kind == "all-equal":
+        build = np.full(T, rng.integers(0, 1 << 64, dtype=np.uint64))
+    else:
+        build = np.sort(rng.integers(1 << 63, 1 << 64, T, dtype=np.uint64))
+    other = (build[0] + rng.integers(0, 1 << 12, n - n // 2).astype(
+        np.uint64) if kind == "clustered" else
+        rng.integers(0, 1 << 64, n - n // 2, dtype=np.uint64))
+    probe = np.concatenate([rng.choice(build, n // 2), other])
+    first, last = int(build[0]), int(build[-1])
+    shift = max((last - first).bit_length() - 12, 0)
+    edges = [e for b in range(1, 1 << 12)
+             for e in (first + (b << shift) - 1, first + (b << shift))
+             if e <= last]
+    head = np.array([0, U64_MAX, 1 << 63] + edges, dtype=np.uint64)[:n]
+    probe[:head.size] = head
     return (torch.from_numpy(build.view(np.int64)),
             torch.from_numpy(probe.view(np.int64)))
 
 
-@pytest.mark.parametrize("T", [1, 2, 255, 2048])
+@pytest.mark.parametrize("kind", ["duplicates", "clustered", "all-equal",
+                                  "high"])
+@pytest.mark.parametrize("T", [1, 2, 3, 255, 2047, 2048])
 @pytest.mark.parametrize("n", [3, 16384, 1_000_001])
-def test_broadcast_probe_kernel_matches_plain(cuda, T, n):
-    build, probe = (x.to(cuda) for x in _k4_keys(T, n, T + n))
+def test_broadcast_probe_kernel_matches_plain(cuda, T, n, kind):
+    build, probe = (x.to(cuda) for x in _k4_keys(T, n, T + n, kind))
     before = broadcast_probe.launches
     lo, cnt = broadcast_probe(build, probe)
     assert broadcast_probe.launches == before + 1

@@ -204,23 +204,39 @@ def test_broadcast_probe_plain_matches_reference_kernel():
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
 
 
-def _k4_case(T, n, seed):
-    """A sorted build with duplicate runs and keys at and above 2^63, and
-    probes half drawn from the build."""
+def _k4_case(T, n, seed, kind="duplicates"):
+    """A sorted build and probes half drawn from it. ``duplicates``: runs
+    of equal keys, keys at and above 2^63 and the extremes of the unsigned
+    range; ``clustered``: T - 1 keys in a window 2^12 wide and 2^64 - 1;
+    ``all-equal``: one key T times; ``high``: every key above 2^63."""
     rng = np.random.default_rng(seed)
-    distinct = _keys(seed, max(T // 2, 1))
-    build = np.sort(rng.choice(distinct, T))
-    probe = np.concatenate([rng.choice(build, n // 2), _keys(seed + 1,
-                                                             n - n // 2)])
-    if T > 1:   # the extremes of the unsigned range
+    window = None
+    if kind == "duplicates":
+        build = np.sort(rng.choice(_keys(seed, max(T // 2, 1)), T))
+    elif kind == "clustered":
+        base = np.uint64(rng.integers(0, 1 << 63))
+        window = base + rng.integers(0, 1 << 12, n).astype(np.uint64)
+        build = np.sort(np.append(window[:T - 1], U64_MAX))
+    elif kind == "all-equal":
+        build = np.full(T, _keys(seed, 1)[0])
+    else:
+        build = np.sort(_keys(seed, T, hi_share=1.0))
+    other = _keys(seed + 1, n - n // 2) if window is None else window
+    probe = np.concatenate([rng.choice(build, n // 2), other[:n - n // 2]])
+    if kind == "duplicates" and T > 1:
         build[0], build[-1] = 0, U64_MAX
     probe[:4] = [0, U64_MAX, 1 << 63, (1 << 63) - 1]
     return build, probe
 
 
-@pytest.mark.parametrize("T", [1, 2048])
-def test_broadcast_probe_plain_matches_searchsorted(T):
-    build, probe = _k4_case(T, 5001, T)
+@pytest.mark.parametrize("T, kind", [
+    pytest.param(1, "duplicates", id="1"),
+    pytest.param(2048, "duplicates", id="2048"),
+    pytest.param(2048, "clustered", id="clustered"),
+    pytest.param(2047, "all-equal", id="all-equal"),
+    pytest.param(2048, "high", id="high")])
+def test_broadcast_probe_plain_matches_searchsorted(T, kind):
+    build, probe = _k4_case(T, 5001, T, kind)
     lo, cnt = pt.broadcast_probe(tensor_from_u64(build, "cpu"),
                                  tensor_from_u64(probe, "cpu"))
     want_lo = np.searchsorted(build, probe, side="left")
