@@ -9,7 +9,10 @@ pipeline (with ``join``), the fused filter+project flagship, the eager
 ``group_by`` (K3 for dense integer keys), the eager hash ``join`` (all
 eight types) and ``join_asof``, the small sorted-build probe
 ``broadcast_probe`` (K4), the hash-aggregate, scalar-aggregate and sort
-registry functions, a pyarrow.compute-shaped facade (``compute``), and
+registry functions, the numeric compute tail (validity, selection,
+numeric cast, the sort tail, element-wise min/max, power/abs/sign,
+bitwise, math, cumulative, conditional, set lookup, run ends, random),
+a pyarrow.compute-shaped facade (``compute``), and
 the query layer: ``Table`` (a sequence of batches), the streaming
 ``ExecPlan`` (``exec``), pyarrow.acero-shaped ``Declaration``s
 (``acero``), ``query()`` and the TPC-H and BASELINE templates

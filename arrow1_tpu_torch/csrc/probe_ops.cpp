@@ -1,9 +1,11 @@
-// Host side of the four probes that run as operators of PyTorch's
-// dispatcher: torch.ops.a1t.probe_blocked_1d(x), probe_blocked_2d(x),
-// probe_cumsum_1d(x) and probe_smem_output(x). Each does in C++ what
-// kernels/probes.py:run_probe does in Python for the ctypes probes: check
-// the input (with the same messages), allocate the output, take the
-// current stream, launch (probe_ops.cu), check the launch, and return.
+// Host side of the six probes, operators of PyTorch's dispatcher:
+// torch.ops.a1t.probe_blocked_1d(x), probe_blocked_2d(x),
+// probe_dma_matmul(x), probe_cumsum_1d(x), probe_smem_output(x) and
+// probe_dma_in_when(x), and of probe_empty(x), which takes the same path
+// to an empty kernel. Each checks its input (the messages are the ones
+// kernels/probes.py:run_probe documents), allocates the output, takes the
+// current stream, launches one kernel (probe_ops.cu), checks the launch,
+// and returns.
 //
 // This is the only translation unit of the port that includes PyTorch's
 // headers; kernels/build.py compiles it with probe_ops.cu into one library
@@ -25,6 +27,11 @@ extern "C" {
 int a1t_probe_ops_sum(const int* x, int64_t n, int* o, void* stream);
 int a1t_probe_ops_cumsum(const int* x, int64_t n, int* o, void* stream);
 int a1t_probe_ops_double(const int* x, int64_t n, int* o, void* stream);
+int a1t_probe_ops_dma_matmul(const int* x, int64_t rows, int* o,
+                             void* stream);
+int a1t_probe_ops_dma_in_when(const int* x, int64_t rows, int* o,
+                              void* stream);
+int a1t_probe_ops_empty(void* stream);
 }
 
 namespace {
@@ -95,17 +102,47 @@ at::Tensor probe_cumsum_1d(const at::Tensor& x) {
   return out;
 }
 
-// 2 * x through the int4 kernel: x contiguous, 16-byte aligned (a copy if
-// it is not), numel a multiple of kBlock
-at::Tensor double_values(const at::Tensor& x, const char* name) {
-  const c10::cuda::CUDAGuard guard(x.device());
+// x contiguous and 16-byte aligned (a copy if it is not): the kernels
+// of the int4 and tile probes load 16 bytes a thread
+at::Tensor aligned16(const at::Tensor& x) {
   at::Tensor xc = x.contiguous();
   if (reinterpret_cast<uintptr_t>(xc.data_ptr()) % 16) {
-    xc = xc.clone();   // one 16-byte load a thread: realign
+    xc = xc.clone();
   }
+  return xc;
+}
+
+// 2 * x through the int4 kernel: numel a multiple of kBlock
+at::Tensor double_values(const at::Tensor& x, const char* name) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const at::Tensor xc = aligned16(x);
   at::Tensor out = at::empty_like(xc);
   check_launch(a1t_probe_ops_double(xc.data_ptr<int>(), xc.numel(),
                                     out.data_ptr<int>(), stream_of(xc)),
+               name);
+  return out;
+}
+
+bool is_tiles(const at::Tensor& x) {
+  return x.dim() == 2 && x.size(1) == kLanes && x.size(0) % kRows == 0;
+}
+
+std::string tiles_message(const at::Tensor& x) {
+  return "input must be [8k, " + std::to_string(kLanes) + "], got " +
+         shape_text(x);
+}
+
+// One launch of a [8k, 128] tile kernel, one block a tile; the kernel
+// writes every value of the output.
+template <typename Launch>
+at::Tensor run_tiles(const at::Tensor& x, const char* name,
+                     const Launch& launch) {
+  check_input(x, name, is_tiles(x), [&] { return tiles_message(x); });
+  const c10::cuda::CUDAGuard guard(x.device());
+  const at::Tensor xc = aligned16(x);
+  at::Tensor out = at::empty_like(xc);
+  check_launch(launch(xc.data_ptr<int>(), xc.size(0), out.data_ptr<int>(),
+                      stream_of(xc)),
                name);
   return out;
 }
@@ -121,13 +158,27 @@ at::Tensor probe_blocked_1d(const at::Tensor& x) {
 
 at::Tensor probe_blocked_2d(const at::Tensor& x) {
   constexpr const char* kName = "blocked-2d";
-  check_input(x, kName,
-              x.dim() == 2 && x.size(1) == kLanes && x.size(0) % kRows == 0,
-              [&] {
-                return "input must be [8k, " + std::to_string(kLanes) +
-                       "], got " + shape_text(x);
-              });
+  check_input(x, kName, is_tiles(x), [&] { return tiles_message(x); });
   return double_values(x, kName);
+}
+
+at::Tensor probe_dma_matmul(const at::Tensor& x) {
+  return run_tiles(x, "manual-dma-matmul", a1t_probe_ops_dma_matmul);
+}
+
+at::Tensor probe_dma_in_when(const at::Tensor& x) {
+  return run_tiles(x, "dma-in-when", a1t_probe_ops_dma_in_when);
+}
+
+// The operator path of a probe with an empty kernel: the same checks, an
+// output allocated like x, the current stream and one launch.
+at::Tensor probe_empty(const at::Tensor& x) {
+  constexpr const char* kName = "empty";
+  check_input(x, kName, true, [] { return ""; });
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = at::empty_like(x);
+  check_launch(a1t_probe_ops_empty(stream_of(x)), kName);
+  return out;
 }
 
 }  // namespace
@@ -137,4 +188,7 @@ TORCH_LIBRARY(a1t, m) {
   m.def("probe_blocked_2d(Tensor x) -> Tensor", &probe_blocked_2d);
   m.def("probe_cumsum_1d(Tensor x) -> Tensor", &probe_cumsum_1d);
   m.def("probe_smem_output(Tensor x) -> Tensor", &probe_smem_output);
+  m.def("probe_dma_matmul(Tensor x) -> Tensor", &probe_dma_matmul);
+  m.def("probe_dma_in_when(Tensor x) -> Tensor", &probe_dma_in_when);
+  m.def("probe_empty(Tensor x) -> Tensor", &probe_empty);
 }

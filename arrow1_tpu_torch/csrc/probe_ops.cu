@@ -1,12 +1,15 @@
-// Device side of the four probes that run as PyTorch operators
+// Device side of the six probes, which run as PyTorch operators
 // (probe_ops.cpp registers them as torch.ops.a1t.*): blocked-1d,
-// blocked-2d, cumsum-1d and smem-output. The other two probes are in
-// probes.cu, behind ctypes.
+// blocked-2d, manual-dma-matmul, cumsum-1d, smem-output and dma-in-when,
+// and of the empty kernel that times the operator path alone.
 //
 // Replaces the pallas_calls of arrow1_tpu/kernels/tpu_probes.py:41
 // (blocked-1d, 2 * x over 1-D blocks of 1024), :50 (blocked-2d, 2 * x over
-// [8, 128] tiles), :90 (cumsum-1d, the inclusive int32 cumsum of x) and
-// :100 (smem-output, sum(x) into a 1-element output).
+// [8, 128] tiles), :75 (manual-dma-matmul, per row of each [8, 128] tile
+// the inclusive count of odd values: the TPU's (x % 2) @ upper-triangular
+// product), :90 (cumsum-1d, the inclusive int32 cumsum of x), :100
+// (smem-output, sum(x) into a 1-element output) and :120 (dma-in-when,
+// each [8, 128] tile copied in, and out only on even tiles).
 //
 // Bound on the H100: 16 KB in and at most 16 KB out, a few nanoseconds at
 // 3.35 TB/s; a call costs its launch and the host code around it. So the
@@ -28,12 +31,22 @@
 //   smem-output  one block: int4 loads over the 16-byte-aligned middle of
 //                x, scalar loads for the head and the tail, a warp-shuffle
 //                reduction, one shared-memory stage, and one int32 store
-//                (no memset: the block writes its only output).
+//                (no memset: the block writes its only output);
+//   manual-dma-  one block of 256 threads a tile: the tile arrives in
+//   matmul       shared memory by cp.async (the TPU's manual DMA), one
+//                warp scans each row, and the tile leaves from shared
+//                memory;
+//   dma-in-when  the same cp.async of each tile; an even tile is stored
+//                from shared memory (the TPU's DMA under pl.when), an odd
+//                one as zeros by the same block, so a call is one launch
+//                with no memset before it (the reference never writes the
+//                odd tiles; the port defines them as 0).
 // int32 arithmetic wraps, as the TPU's does: sums are unsigned here.
 // This file includes no PyTorch header: only probe_ops.cpp does.
 
 #include <cstdint>
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +55,10 @@ constexpr int kSumThreads = 1024;
 constexpr int kScanThreads = 1024;
 constexpr int kDoubleThreads = 256;   // int4 lanes a block: 1024 values
 constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kRows = 8;        // a 2-D tile is [kRows, kLanes] int32
+constexpr int kLanes = 128;
+constexpr int kTileElems = kRows * kLanes;
+constexpr int kCopyThreads = kTileElems / 4;  // 256: one 16-byte copy each
 
 // Values before the first 16-byte boundary at or after p, at most n.
 long long head_of(const int* p, long long n) {
@@ -170,6 +187,65 @@ double_kernel(const int4* __restrict__ x, int4* __restrict__ o) {
   o[i] = v;
 }
 
+// The block's [kRows, kLanes] tile into shared memory by cp.async, 16
+// bytes a thread; returns after the copy has landed and every thread of
+// the block can see it. Launched with kCopyThreads threads.
+__device__ __forceinline__ void tile_to_shared(const int* __restrict__ x,
+                                               int* tile) {
+  const long long base = static_cast<long long>(blockIdx.x) * kTileElems;
+  __pipeline_memcpy_async(tile + 4 * threadIdx.x, x + base + 4 * threadIdx.x,
+                          16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// x and o 16-byte aligned, one block per [8, 128] tile.
+__global__ void __launch_bounds__(kCopyThreads)
+dma_scan_kernel(const int* __restrict__ x, int* __restrict__ o) {
+  __shared__ __align__(16) int tile[kTileElems];
+  tile_to_shared(x, tile);
+  // one warp per row (8 warps, 8 rows), four values a lane
+  const int lane = threadIdx.x & 31;
+  int* row = tile + (threadIdx.x >> 5) * kLanes;
+  int v[4];
+  int local = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    local += row[4 * lane + k] & 1;   // x mod 2 (floor mod, as in JAX)
+    v[k] = local;
+  }
+  int incl = local;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFullWarp, incl, d);
+    if (lane >= d) incl += up;
+  }
+  const int before = incl - local;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) row[4 * lane + k] = before + v[k];
+  __syncthreads();
+  const long long base = static_cast<long long>(blockIdx.x) * kTileElems;
+  reinterpret_cast<int4*>(o + base)[threadIdx.x] =
+      reinterpret_cast<const int4*>(tile)[threadIdx.x];
+}
+
+// x and o 16-byte aligned, one block per [8, 128] tile; every block
+// writes its whole tile, so the output needs no memset.
+__global__ void __launch_bounds__(kCopyThreads)
+dma_when_kernel(const int* __restrict__ x, int* __restrict__ o) {
+  __shared__ __align__(16) int tile[kTileElems];
+  tile_to_shared(x, tile);
+  const long long base = static_cast<long long>(blockIdx.x) * kTileElems;
+  reinterpret_cast<int4*>(o + base)[threadIdx.x] =
+      blockIdx.x % 2 == 0 ? reinterpret_cast<const int4*>(tile)[threadIdx.x]
+                          : make_int4(0, 0, 0, 0);
+}
+
+// Does nothing: its launch through the operator path is the least time a
+// probe call can take.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -198,6 +274,28 @@ int a1t_probe_ops_double(const int* x, int64_t n, int* o, void* stream) {
   double_kernel<<<static_cast<unsigned>(n / (4 * kDoubleThreads)),
                   kDoubleThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const int4*>(x), reinterpret_cast<int4*>(o));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows > 0, a multiple of 8, of 128 int32 values; x and o 16-byte aligned.
+int a1t_probe_ops_dma_matmul(const int* x, int64_t rows, int* o,
+                             void* stream) {
+  dma_scan_kernel<<<static_cast<unsigned>(rows / kRows), kCopyThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows > 0, a multiple of 8, of 128 int32 values; x and o 16-byte aligned.
+int a1t_probe_ops_dma_in_when(const int* x, int64_t rows, int* o,
+                              void* stream) {
+  dma_when_kernel<<<static_cast<unsigned>(rows / kRows), kCopyThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block of one thread that does nothing.
+int a1t_probe_ops_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,8 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "arrow1_tpu_torch"
 SOURCES = ("compaction.cu", "fused_filter_project.cu", "segment_sums.cu",
-           "broadcast_probe.cu", "compact_u64.cu", "compaction_split.cu",
-           "probes.cu")
+           "broadcast_probe.cu", "compact_u64.cu", "compaction_split.cu")
 # sm_90a: Hopper with its architecture-specific features. -Xptxas=-v puts
 # each kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -5,24 +5,21 @@ arrow1_tpu/kernels/tpu_probes.py). Run it on a GPU:
 
 Each probe launches one small kernel on the reference's inputs
 (``x1 = arange(4096)`` int32, ``x2 = arange(4096)`` as [32, 128]) and
-compares its output with the probe's plain PyTorch version. The four
-probes that one PyTorch call also computes (blocked-1d, blocked-2d,
-cumsum-1d, smem-output) are operators of PyTorch's dispatcher
-(``torch.ops.a1t.probe_blocked_1d``, ``probe_blocked_2d``,
-``probe_cumsum_1d``, ``probe_smem_output``; host code
-``csrc/probe_ops.cpp``, kernels ``csrc/probe_ops.cu``), which check,
-allocate and launch in C++: a call costs about what one PyTorch call
-does. manual-dma-matmul and dma-in-when are C functions of
-``csrc/probes.cu``, called through ctypes. The report is the
-reference's: probe name -> "OK", or "FAIL: <message>"; "OK" means the
-kernel launched and its output equals the plain version's. The two
-bitcast probes of the reference are ``jax.jit`` programs, not kernels;
-here they are ``Tensor.view``s, checked against their expected values.
+compares its output with the probe's plain PyTorch version. Every probe
+is an operator of PyTorch's dispatcher (``torch.ops.a1t.probe_*``; host
+code ``csrc/probe_ops.cpp``, kernels ``csrc/probe_ops.cu``), which
+checks, allocates and launches one kernel in C++: a call costs about
+what one PyTorch call does. ``torch.ops.a1t.probe_empty`` takes the same
+path to an empty kernel; its time is the least a probe call can take.
+The report is the reference's: probe name -> "OK", or
+"FAIL: <message>"; "OK" means the kernel launched and its output equals
+the plain version's. The two bitcast probes of the reference are
+``jax.jit`` programs, not kernels; here they are ``Tensor.view``s,
+checked against their expected values.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Callable, Dict
 
@@ -31,24 +28,22 @@ import torch
 
 from . import build
 
-__all__ = ["PROBES", "OPERATORS", "probe_inputs", "plain", "run_probe",
-           "run_probes", "SOURCE"]
+__all__ = ["PROBES", "OPERATORS", "EMPTY", "probe_inputs", "plain",
+           "run_probe", "run_empty", "run_probes"]
 
-SOURCE = "probes.cu"
 R, L, T = 8, 128, 1024   # a 2-D tile is [R, L]; a 1-D block is T
 
-# probe name -> (its entry point, its input: "x1" or "x2"); an entry is a
-# C function of probes.cu, or, for the names in OPERATORS, an operator in
-# torch.ops.a1t
+# probe name -> (its operator in torch.ops.a1t, its input: "x1" or "x2")
 PROBES = {
     "blocked-1d": ("probe_blocked_1d", "x1"),
     "blocked-2d": ("probe_blocked_2d", "x2"),
-    "manual-dma-matmul": ("a1t_probe_dma_matmul", "x2"),
+    "manual-dma-matmul": ("probe_dma_matmul", "x2"),
     "cumsum-1d": ("probe_cumsum_1d", "x1"),
     "smem-output": ("probe_smem_output", "x1"),
-    "dma-in-when": ("a1t_probe_dma_in_when", "x2"),
+    "dma-in-when": ("probe_dma_in_when", "x2"),
 }
-OPERATORS = ("blocked-1d", "blocked-2d", "cumsum-1d", "smem-output")
+OPERATORS = tuple(PROBES)   # every probe runs as an operator
+EMPTY = "probe_empty"       # the operator path to an empty kernel
 
 
 def probe_inputs(device) -> Dict[str, torch.Tensor]:
@@ -76,7 +71,7 @@ _PLAIN: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "cumsum-1d": lambda x: torch.cumsum(x, 0, dtype=torch.int32),
     "smem-output": lambda x: x.sum(dtype=torch.int32).reshape(1),
     # odd tiles are never written by the reference (undefined there); the
-    # port's output starts zeroed, so they read 0
+    # port's kernel writes them as 0
     "dma-in-when": _even_tiles,
 }
 
@@ -87,35 +82,22 @@ def plain(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _lib():
-    lib = build.load(SOURCE)
-    for name, (entry, _) in PROBES.items():
-        if name in OPERATORS:
-            continue
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
 def _operators() -> Dict[str, Callable[[torch.Tensor], torch.Tensor]]:
     build.load_ops()
-    return {name: getattr(torch.ops.a1t, PROBES[name][0]).default
-            for name in OPERATORS}
+    return {op: getattr(torch.ops.a1t, op).default
+            for op in [entry for entry, _ in PROBES.values()] + [EMPTY]}
 
 
 def run_probe(name: str, x: torch.Tensor) -> torch.Tensor:
     """Launch probe ``name``'s kernel on the int32 tensor ``x`` (CUDA) and
     return its output; a CPU tensor runs the plain version. Counts the
     kernel's launches in ``run_probe.launches[name]``."""
-    if x.is_cuda and name in OPERATORS:
+    entry, kind = PROBES[name]
+    if x.is_cuda:
         # the operator checks the input as below, in C++, and raises
-        out = _operators()[name](x)
+        out = _operators()[entry](x)
         run_probe.launches[name] += 1
         return out
-    entry, kind = PROBES[name]
     if x.dtype != torch.int32:
         raise TypeError(f"probe {name}: int32 input expected, got {x.dtype}")
     if kind == "x2" and (x.dim() != 2 or x.shape[1] != L
@@ -124,26 +106,18 @@ def run_probe(name: str, x: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if kind == "x1" and x.dim() != 1:
         raise ValueError(f"probe {name}: input must be 1-D")
-    if x.device.type == "cpu":
-        return plain(name, x)
-    if x.device.type != "cuda":
+    if x.numel() == 0:
+        raise ValueError(f"probe {name}: empty input")
+    if x.device.type != "cpu":
         raise TypeError(f"probe {name}: no kernel for device {x.device}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:   # the tiles move 16 bytes a thread
-        x = x.clone()
-    if name == "dma-in-when":
-        # odd tiles are never written: they keep these zeros
-        out = torch.zeros_like(x)
-    else:
-        out = torch.empty_like(x)
-    err = getattr(_lib(), entry)(x.data_ptr(), x.shape[0], out.data_ptr(),
-                                 torch.cuda.current_stream(
-                                     x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"probe {name}: kernel launch failed: CUDA error "
-                           f"{err}")
-    run_probe.launches[name] += 1
-    return out
+    return plain(name, x)
+
+
+def run_empty(x: torch.Tensor) -> torch.Tensor:
+    """The operator path of a probe (input checks, an output allocated
+    like ``x``, one launch) to a kernel that does nothing; ``x`` is an
+    int32 CUDA tensor. Its time is the least a probe call can take."""
+    return _operators()[EMPTY](x)
 
 
 run_probe.launches = dict.fromkeys(PROBES, 0)

@@ -1,4 +1,5 @@
 """Compute kernels; importing this package registers them."""
 
-from . import (aggregate, arithmetic, boolean, compare, groupby,  # noqa: F401
-               hash, join, selection, sort)
+from . import (aggregate, arithmetic, bitwise, boolean, cast,  # noqa: F401
+               compare, conditional, cumulative, dictionary, groupby, hash,
+               join, math, ree, selection, set_lookup, sort, validity)

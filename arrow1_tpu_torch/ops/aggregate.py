@@ -384,7 +384,11 @@ def _mode_exec(args, options: ModeOptions, ctx):
                     dictionary=col.dictionary),
              Column(torch.zeros(0, dtype=torch.int64, device=col.device),
                     dt.int64)), ("mode", "count"))
-    gids, reps, ngroups = grouping_by_keys(grouping_key_pairs(col))
+    keys = col
+    if col.dtype.is_floating:   # 0.0 and -0.0 are one value, as in pyarrow
+        keys = Column(torch.where(col.data == 0, 0.0, col.data).to(
+            col.data.dtype), col.dtype, validity=col.validity)
+    gids, reps, ngroups = grouping_by_keys(grouping_key_pairs(keys))
     counts = torch.zeros(ngroups, dtype=torch.int64, device=col.device)
     counts.index_add_(0, gids.to(torch.int64),
                       torch.ones(col.length, dtype=torch.int64,
@@ -393,7 +397,8 @@ def _mode_exec(args, options: ModeOptions, ctx):
     order = sort_indices_device([
         (~rep_valid).to(torch.int64),         # nulls last
         ~counts,                              # count descending
-        normalize_sort_key(col)[-1][reps],    # value ascending
+        # value ascending, NaN after every number (its class key)
+        *[k[reps] for k in normalize_sort_key(col)],
     ])
     top = order[:min(options.n, int(rep_valid.sum()))]
     return RecordBatch((take_column(col, reps[top]),
@@ -422,6 +427,8 @@ def _index_exec(args, options, ctx):
         values, target = args[0], as_datum(options.value)
     else:
         raise Invalid("index: needs a value argument or IndexOptions.value")
+    if not isinstance(target, Scalar):
+        raise Invalid("index: the value to find must be a scalar")
     if values.dtype.is_binary:
         sval = target.as_py()
         codes = np.flatnonzero(values.dictionary.values == sval)

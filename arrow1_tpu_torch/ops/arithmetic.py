@@ -1,6 +1,6 @@
-"""Scalar arithmetic: add/subtract/multiply/divide/negate and their
-``_checked`` variants (counterpart of arrow1_tpu/ops/arithmetic.py,
-numeric types only).
+"""Scalar arithmetic: add/subtract/multiply/divide/negate/power/abs and
+their ``_checked`` variants, and sign (counterpart of
+arrow1_tpu/ops/arithmetic.py, numeric types only).
 
 Integer ops wrap (two's complement); integer division truncates toward
 zero as in C and Arrow. The checked variants reduce an overflow flag on
@@ -12,9 +12,14 @@ and uint32 widen and are masked back to their width, and uint64 travels
 as its int64 bit pattern, whose add, subtract and multiply wrap as the
 unsigned ones do. Its order compares flip the sign bit first, and its
 division is the unsigned quotient of ``_udiv64``.
+
+``sign`` follows pyarrow where the reference does not (ROADMAP Queue 3):
+the sign of 0.0 and -0.0 is 0.0.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -25,9 +30,18 @@ from ..registry import register_function
 from .common import (as_int64, column_device, common_type, from_int64,
                      intersect_validity, result_column, unpack)
 
+__all__ = ["ArithmeticOptions"]
+
 _INT64_MAX = (1 << 63) - 1
 # the types computed in int64, each with the mask of its width
 _WIDE = {"uint16": 0xFFFF, "uint32": 0xFFFFFFFF, "uint64": -1}
+
+
+@dataclasses.dataclass
+class ArithmeticOptions:
+    """Reference: api_scalar.h:40."""
+
+    check_overflow: bool = False
 
 
 def _raise_if(flag, message: str, validity):
@@ -161,8 +175,9 @@ def _divide_exec(checked):
             r = _div(x, y_safe, out_t)
             if wide:
                 r = from_int64(r, out_t.physical_dtype())
-        else:
-            r = x / y
+        else:   # a divisor on the card: no product with a reciprocal
+            dev = column_device(args)
+            r = x.to(dev) / y.to(dev)
         return result_column(r, out_t, validity, n)
 
     return exec_fn
@@ -199,3 +214,113 @@ def _negate_exec(checked):
 register_function("negate", "scalar", 1)(
     _negate_exec(False))
 register_function("negate_checked", "scalar", 1)(_negate_exec(True))
+
+
+def _ipow(x, y):
+    """x ** y for integers by squaring, wrapping (reference:
+    scalar_arithmetic.cc Power). ``y`` holds int64 exponents >= 0, or
+    uint64 bit patterns, shifted logically; one step per bit of the
+    widest exponent (read on the host)."""
+    result = torch.ones_like(x)
+    base, exp = x, y
+    steps = 64 if bool((y < 0).any()) else \
+        (int(y.max()).bit_length() if y.numel() else 0)
+    for _ in range(steps):
+        result = torch.where((exp & 1) == 1, result * base, result)
+        base = base * base
+        exp = (exp >> 1) & _INT64_MAX
+    return result
+
+
+def _power_exec(checked):
+    def exec_fn(args, options, ctx):
+        out_t = common_type(args)
+        _check_numeric("power", args, out_t)
+        (x, y), validities, n = unpack(args, out_t)
+        validity = intersect_validity(validities)
+        dev = column_device(args)
+        x, y = x.to(dev), y.to(dev)
+        if not out_t.is_integer:
+            return result_column(torch.pow(x, y), out_t, validity, n)
+        wide = out_t.kind in _WIDE
+        x64, y64 = as_int64(x), as_int64(y)
+        if out_t.is_signed_integer:
+            _raise_if(y64 < 0, "integers to negative integer powers are "
+                      "not allowed", validity)
+        if out_t.is_signed_integer:
+            y64 = torch.where(y64 < 0, 0, y64)
+        if checked:
+            approx = torch.abs(x64.to(torch.float64)
+                               if out_t.kind != "uint64" else
+                               _u64_float(x64)) ** (
+                _u64_float(y64) if out_t.kind == "uint64"
+                else y64.to(torch.float64))
+            hi = float(_int_max(out_t))
+            big = (_u64_float(x64) if out_t.kind == "uint64"
+                   else torch.abs(x64.to(torch.float64))) > 1
+            _raise_if(big & (approx > hi * 1.0000001), "overflow in power",
+                      validity)
+        if wide:
+            r = from_int64(_ipow(x64, y64) & _WIDE[out_t.kind],
+                           out_t.physical_dtype())
+        else:
+            r = _ipow(x, y64).to(x.dtype)
+        return result_column(r, out_t, validity, n)
+
+    return exec_fn
+
+
+def _int_max(t) -> int:
+    info = torch.iinfo(t.physical_dtype())
+    return int(info.max)
+
+
+def _u64_float(x64):
+    """uint64 bit patterns as float64 magnitudes (for bounds only)."""
+    return torch.where(x64 < 0, x64.to(torch.float64) + 2.0 ** 64,
+                       x64.to(torch.float64))
+
+
+register_function("power", "scalar", 2, ArithmeticOptions)(
+    _power_exec(False))
+register_function("power_checked", "scalar", 2)(_power_exec(True))
+
+
+def _abs_exec(checked):
+    def exec_fn(args, options, ctx):
+        (a,) = args
+        out_t = a.dtype
+        if not out_t.is_numeric:
+            raise NotImplementedError_(f"abs of {out_t} is not ported")
+        (x,), validities, n = unpack(args, out_t)
+        validity = intersect_validity(validities)
+        if checked and out_t.is_signed_integer:
+            _raise_if(x == _int_min(out_t), "overflow in abs", validity)
+        r = x if out_t.is_unsigned_integer else torch.abs(x)
+        return result_column(r, out_t, validity, n)
+
+    return exec_fn
+
+
+register_function("abs", "scalar", 1)(_abs_exec(False))
+register_function("abs_checked", "scalar", 1)(_abs_exec(True))
+
+
+def _sign_exec(args, options, ctx):
+    """-1, 0 or 1 (int8 for integers, the input's type for floats; NaN
+    stays NaN, and either zero gives 0.0 as in pyarrow)."""
+    (a,) = args
+    if not a.dtype.is_numeric:
+        raise NotImplementedError_(f"sign of {a.dtype} is not ported")
+    out_t = a.dtype if a.dtype.is_floating else dt.int8
+    (x,), validities, n = unpack(args)
+    if a.dtype.is_floating:
+        r = torch.where(torch.isnan(x), x, torch.sign(x) + 0.0)
+    elif a.dtype.is_unsigned_integer:
+        r = (as_int64(x) != 0).to(torch.int8)
+    else:
+        r = torch.sign(x).to(torch.int8)
+    return result_column(r, out_t, intersect_validity(validities), n)
+
+
+register_function("sign", "scalar", 1)(_sign_exec)

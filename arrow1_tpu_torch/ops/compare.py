@@ -1,18 +1,35 @@
 """Comparison kernels: equal/not_equal/greater/greater_equal/less/less_equal
-(counterpart of arrow1_tpu/ops/compare.py, numeric and bool only). Inputs
-promote to a common type; outputs are bool with intersection nulls.
-uint16, uint32 and uint64 compare in int64 (``minmax_domain``): torch has
-no order compare for them."""
+and min_element_wise/max_element_wise (counterpart of
+arrow1_tpu/ops/compare.py; numeric and bool, and dictionary strings for
+the element-wise min and max). Inputs promote to a common type; compare
+outputs are bool with intersection nulls. uint16, uint32 and uint64
+compare in int64 (``minmax_domain``): torch has no order compare for
+them.
+
+The element-wise min and max follow pyarrow where the reference does not
+(ROADMAP Queue 3): a NaN loses to any number (NaN only where every input
+is NaN or null), and of two equal values (0.0 and -0.0) the earlier
+argument's is kept, as pyarrow does for float64.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from .. import dtypes as dt
+from ..column import Column
+from ..datum import Scalar
 from ..errors import NotImplementedError_
 from ..registry import register_function
-from .common import (common_type, intersect_validity, minmax_domain,
-                     result_column, unpack)
+from .common import (broadcast_length, column_device, common_type,
+                     intersect_validity, minmax_domain, result_column,
+                     unpack)
+from .dictionary import one_pool
+
+__all__ = ["ElementWiseAggregateOptions"]
 
 _OPS = {
     "equal": torch.eq,
@@ -42,3 +59,91 @@ def _compare_exec(name):
 
 for _name in _OPS:
     register_function(_name, "scalar", 2)(_compare_exec(_name))
+
+
+@dataclasses.dataclass
+class ElementWiseAggregateOptions:
+    """Reference: api_scalar.h ElementWiseAggregateOptions."""
+
+    skip_nulls: bool = True
+
+
+def _pick_first(r, v, is_min: bool):
+    """Per slot, whether the running value ``r`` stays against ``v``: it
+    does unless ``v`` is strictly better, or ``r`` is NaN and ``v`` not."""
+    better = v < r if is_min else v > r
+    if r.is_floating_point():
+        better = better | (torch.isnan(r) & ~torch.isnan(v))
+    return ~better
+
+
+def _fold(values, validities, is_min: bool, payloads=None):
+    """Null-skipping fold of the arguments' values, left to right: a slot
+    keeps the running value unless the next argument's is valid and
+    better there, or the running one is null. Returns (values, validity,
+    payload), the payloads (one tensor per argument) carried alike."""
+    r, rv = values[0], validities[0]
+    p = None if payloads is None else payloads[0]
+    for i in range(1, len(values)):
+        v, m = values[i], validities[i]
+        if rv is False:
+            r, rv = v, m
+            p = None if payloads is None else payloads[i]
+            continue
+        if m is False:
+            continue
+        keep = _pick_first(r, v, is_min)
+        if m is not None:
+            keep = keep | ~m
+        if rv is not None:
+            keep = torch.where(rv, keep, False)
+        r = torch.where(keep, r, v)
+        if payloads is not None:
+            p = torch.where(keep, p, payloads[i])
+        rv = None if rv is None or m is None else (rv | m)
+    return r, rv, p
+
+
+def _minmax_element_wise(name):
+    is_min = name.startswith("min")
+
+    def exec_fn(args, options, ctx):
+        n = broadcast_length(args)
+        dev = column_device(args)
+        if any(a.dtype.is_binary for a in args):
+            cols = one_pool(args, n or 1, dev)
+            d = cols[0].dictionary
+            rank = torch.from_numpy(d.rank.astype(np.int64)).to(dev)
+            _, validity, code = _fold(
+                [rank[c.data.long()] for c in cols],
+                [c.validity for c in cols], is_min,
+                payloads=[c.data for c in cols])
+            out = Column(code, cols[0].dtype, validity=validity,
+                         dictionary=d)
+        else:
+            out_t = common_type(args)
+            values, validities, n = unpack(args, out_t)
+            values = [v.to(dev).expand(n) if n is not None and v.dim() == 0
+                      else v.to(dev) for v in values]
+            doms = [minmax_domain(v) for v in values]
+            r, validity, _ = _fold([y for y, _ in doms], validities, is_min)
+            out = result_column(doms[0][1](r), out_t, validity, n)
+        if options is not None and not options.skip_nulls:
+            strict = intersect_validity([a.validity if isinstance(a, Column)
+                                         else (None if a.is_valid else False)
+                                         for a in args])
+            if isinstance(out, Scalar):
+                out.is_valid = out.is_valid and strict is not False
+            elif strict is not None:
+                mask = torch.zeros(n, dtype=torch.bool, device=dev) \
+                    if strict is False else strict
+                out = Column(out.data, out.dtype, validity=mask,
+                             dictionary=out.dictionary)
+        return out
+
+    return exec_fn
+
+
+for _name in ("min_element_wise", "max_element_wise"):
+    register_function(_name, "scalar", -1, ElementWiseAggregateOptions)(
+        _minmax_element_wise(_name))

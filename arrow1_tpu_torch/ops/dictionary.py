@@ -1,5 +1,5 @@
-"""Dictionary unification and re-encoding (counterpart of
-arrow1_tpu/ops/dictionary.py).
+"""Dictionary unification, re-encoding and ``dictionary_decode``
+(counterpart of arrow1_tpu/ops/dictionary.py).
 
 The value pools live on the host (``column.Dictionary``); only the code
 remap is a device gather. The join needs these for string keys whose two
@@ -15,8 +15,10 @@ import torch
 
 from ..column import Column, Dictionary
 from ..errors import Invalid
+from ..registry import register_function
 
-__all__ = ["unify_dictionaries", "unify_pair", "reencode_against"]
+__all__ = ["unify_dictionaries", "unify_pair", "reencode_against",
+           "one_pool"]
 
 
 def _remap(col: Column, remap: np.ndarray) -> torch.Tensor:
@@ -49,6 +51,34 @@ def unify_dictionaries(cols: Sequence[Column]
     return torch.cat(parts), unified
 
 
+def one_pool(args, n: int, device) -> List[Column]:
+    """String arguments as columns over one pool: a string Scalar becomes
+    ``n`` rows of a one-value pool (null when the scalar is), then pools
+    that differ are unified (a no-op when they are one already)."""
+    from ..datum import Scalar
+
+    cols = []
+    for a in args:
+        if isinstance(a, Scalar):
+            value = a.dictionary.values[int(a.value)] \
+                if a.dictionary is not None else a.value
+            a = Column(torch.zeros(n, dtype=torch.int32, device=device),
+                       a.dtype, validity=None if a.is_valid else
+                       torch.zeros(n, dtype=torch.bool, device=device),
+                       dictionary=Dictionary(np.array([value],
+                                                      dtype=object)))
+        cols.append(a)
+    if all(c.dictionary is cols[0].dictionary for c in cols):
+        return cols
+    merged, pool = unify_dictionaries(cols)
+    out, pos = [], 0
+    for c in cols:
+        out.append(Column(merged[pos:pos + c.length], c.dtype,
+                          validity=c.validity, dictionary=pool))
+        pos += c.length
+    return out
+
+
 def unify_pair(a: Column, b: Column) -> Tuple[Column, Column]:
     """Two dictionary columns re-encoded against one merged pool."""
     merged, d = unify_dictionaries([a, b])
@@ -74,3 +104,27 @@ def reencode_against(col: Column, target: Dictionary) -> Column:
                       "the target dictionary") from None
     return Column(_remap(col, remap), col.dtype, validity=col.validity,
                   dictionary=target)
+
+
+def _dictionary_decode_exec(args, options, ctx):
+    """Inverse of dictionary_encode: an explicit dictionary column becomes
+    its value type: strings keep the codes and the pool (the port's string
+    columns are code-backed), numbers are gathered from the pool. Any
+    other column passes through unchanged, as in pyarrow."""
+    (col,) = args
+    if not col.dtype.is_dictionary:
+        return col
+    vt = col.dtype.value_type
+    if vt.is_binary:
+        return Column(col.data, vt, validity=col.validity,
+                      dictionary=col.dictionary)
+    pool = col.dictionary.values
+    if not len(pool):
+        return Column(torch.zeros_like(col.data, dtype=vt.physical_dtype()),
+                      vt, validity=col.validity)
+    lut = torch.from_numpy(np.asarray(pool).astype(vt.numpy_dtype()))
+    return Column(lut.to(col.device)[col.data.long().clamp(0, len(pool) - 1)],
+                  vt, validity=col.validity)
+
+
+register_function("dictionary_decode", "vector", 1)(_dictionary_decode_exec)

@@ -1,4 +1,5 @@
-"""Selection kernels: filter and take (counterpart of
+"""Selection kernels: filter, take, drop_null, indices_nonzero, scatter
+and the array_filter/array_take functions (counterpart of
 arrow1_tpu/ops/selection.py).
 
 ``filter`` moves every column of the batch, each column's validity and
@@ -14,6 +15,7 @@ import dataclasses
 
 import torch
 
+from .. import dtypes as dt
 from ..column import Column
 from ..datum import Scalar
 from ..errors import IndexError_, Invalid
@@ -21,8 +23,8 @@ from ..kernels.compaction import compact
 from ..registry import register_function
 from ..table import RecordBatch
 
-__all__ = ["FilterOptions", "TakeOptions", "filter", "take", "take_column",
-           "gather_batch"]
+__all__ = ["FilterOptions", "TakeOptions", "ScatterOptions", "filter", "take",
+           "take_column", "gather_batch"]
 
 
 @dataclasses.dataclass
@@ -90,8 +92,7 @@ def _take_exec(args, options: TakeOptions, ctx):
     return take_column(values, idx, extra)
 
 
-register_function("take", "vector", 2, TakeOptions,
-                  aliases=["array_take"])(_take_exec)
+register_function("take", "vector", 2, TakeOptions)(_take_exec)
 
 
 def _effective_mask(mask: Column, null_selection: str):
@@ -151,8 +152,99 @@ def _filter_exec(args, options: FilterOptions, ctx):
     return out_cols[0]
 
 
-register_function("filter", "vector", 2, FilterOptions,
-                  aliases=["array_filter"])(_filter_exec)
+register_function("filter", "vector", 2, FilterOptions)(_filter_exec)
+
+
+def _indices_nonzero_exec(args, options, ctx):
+    """uint64 indices of the valid non-zero values; NaN counts as
+    non-zero (reference: GetTakeIndices, vector_selection.cc:223)."""
+    (mask,) = args
+    nz = mask.data != 0
+    if mask.validity is not None:
+        nz = nz & mask.validity
+    idx = torch.nonzero(nz).reshape(-1)   # sizes the output: a host sync
+    return Column(idx.view(torch.uint64), dt.uint64)
+
+
+register_function("indices_nonzero", "vector", 1)(_indices_nonzero_exec)
+
+
+def _drop_null_exec(args, options, ctx):
+    """The rows with no null (every column valid), through ``filter``:
+    one K2 launch on the card."""
+    (values,) = args
+    if isinstance(values, RecordBatch):
+        m = None
+        for c in values.columns:
+            if c.validity is not None:
+                m = c.validity if m is None else (m & c.validity)
+        if m is None:
+            return values
+        return _filter_exec([values, Column(m, dt.bool_)], FilterOptions(),
+                            ctx)
+    if values.validity is None:
+        return values
+    return _filter_exec([values, Column(values.validity, dt.bool_)],
+                        FilterOptions(), ctx)
+
+
+register_function("drop_null", "vector", 1)(_drop_null_exec)
+
+
+def _array_take_exec(args, options, ctx):
+    return _take_exec(args, TakeOptions(
+        getattr(options, "boundscheck", True)), ctx)
+
+
+def _array_filter_exec(args, options, ctx):
+    return _filter_exec(args, FilterOptions(
+        getattr(options, "null_selection_behavior", None) or "drop"), ctx)
+
+
+register_function("array_take", "vector", 2, TakeOptions)(_array_take_exec)
+register_function("array_filter", "vector", 2, FilterOptions)(
+    _array_filter_exec)
+
+
+@dataclasses.dataclass
+class ScatterOptions:
+    max_index: int = 0
+
+
+def _scatter_exec(args, options: ScatterOptions, ctx):
+    """out[indices[i]] = values[i] for valid indices; slots that nothing
+    lands on, or that take a null value, are null (reference:
+    vector_swizzle.cc Scatter). Where indices repeat the last wins, on
+    every device: each slot takes the largest row that names it
+    (``scatter_reduce`` amax), then one gather. A valid index outside
+    [0, max_index] raises, as in pyarrow (the reference drops it, and
+    counts a negative one from the end: ROADMAP Queue 3)."""
+    values, indices = args
+    if options is None:
+        raise Invalid("scatter requires max_index")
+    if not isinstance(indices, Column) or not indices.dtype.is_integer:
+        raise Invalid("scatter: indices must be an integer array")
+    size = int(options.max_index) + 1
+    dev = values.device
+    idx = indices.data.to(torch.int64)
+    named = indices.mask()
+    if bool((named & ((idx < 0) | (idx >= size))).any()):
+        raise IndexError_(f"scatter: index out of bounds [0, {size})")
+    slot = torch.where(named, idx, size)
+    rows = torch.arange(values.length, dtype=torch.int64, device=dev)
+    last = torch.full((size + 1,), -1, dtype=torch.int64, device=dev)
+    last = last.scatter_reduce(0, slot, rows, "amax")[:size]
+    pick = last.clamp(min=0)
+    filled = (last >= 0) & values.mask()[pick] if values.length else \
+        last >= 0
+    zero = torch.zeros((), dtype=values.data.dtype, device=dev)
+    data = torch.where(filled, values.data[pick], zero) if values.length \
+        else torch.zeros(size, dtype=values.data.dtype, device=dev)
+    return Column(data, values.dtype, validity=filled,
+                  dictionary=values.dictionary)
+
+
+register_function("scatter", "vector", 2, ScatterOptions)(_scatter_exec)
 
 
 def filter(values, mask, null_selection_behavior: str = "drop"):

@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from .config import ExecContext, default_context
 from .datum import Datum, as_datum
 from .errors import KeyError_
 
@@ -69,7 +70,7 @@ def register_function(name: str, kind: str, arity: int,
 
 
 def call_function(name: str, args: Sequence[Any], options=None,
-                  **kwargs) -> Datum:
+                  ctx: Optional[ExecContext] = None, **kwargs) -> Datum:
     """Eager entry point; keyword arguments fill the options class."""
     from . import ops  # noqa: F401  (registers the kernels)
 
@@ -85,7 +86,7 @@ def call_function(name: str, args: Sequence[Any], options=None,
                    if options is not None else fn.options_class(**kwargs))
     if options is None and fn.options_class is not None:
         options = fn.options_class()
-    return fn.exec(datums, options, None)
+    return fn.exec(datums, options, ctx or default_context())
 
 
 def list_functions() -> List[str]:

@@ -6,7 +6,7 @@ NVIDIA GPU. Run it from the root of a checkout:
 
 It builds every CUDA kernel from arrow1_tpu_torch/csrc (one nvcc per
 library, all at once: one per ctypes source, and the operator library of
-probe_ops.cu and probe_ops.cpp), then:
+probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
 
 1. prints the card's name and power limit (nvidia-smi) and the build time;
 2. holds the compaction kernel (K2) against its plain PyTorch version,
@@ -89,11 +89,12 @@ probe_ops.cu and probe_ops.cpp), then:
    versions and boolean-mask indexing;
 11. runs the probe matrix (kernels/probes.py) on the card: every probe
    must read OK (its kernel launched once and equals its plain version);
-   blocked-1d, blocked-2d, cumsum-1d and smem-output go through their
-   PyTorch operators (torch.ops.a1t), the other two through ctypes. Each
-   probe's kernel and, where one PyTorch call computes the same output,
-   library call are timed in turns (CUDA events, median of PROBE_RUNS),
-   the plain version alone, and each with its host time per call
+   all six go through their PyTorch operators (torch.ops.a1t), one
+   launch a call. Each probe's kernel, the empty kernel behind the same
+   operator path (torch.ops.a1t.probe_empty: a probe's launch bound)
+   and, where one PyTorch call computes the same output, that library
+   call are timed in turns (CUDA events, median of PROBE_RUNS), the
+   plain version alone, and each with its host time per call
    (HOST_CALLS back-to-back calls, one synchronise);
 12. drives the query layer at TPC-H SF10 cardinalities (59,986,052 line
    items in 2^20-row batches, 15M orders, 1.5M customers): Q1, Q3, Q5 and
@@ -108,11 +109,21 @@ probe_ops.cu and probe_ops.cpp), then:
    on the card that the output is a permutation of the input rows,
    sorted, and stable; prints the wall time (median of 3) and peak
    device memory;
-14. takes each probe's and library call's device time per call from
-   torch.profiler's kernel records (PROFILE_CALLS calls), last, because
-   the profiler's CUDA tracing may stay attached to the process and slow
-   the launches after it; the operator probes must show their a1t::
-   operator in the profile.
+14. runs the numeric compute tail (arrow1_tpu_torch/compute_tail.py:
+   99 functions of validity, selection, numeric cast, the sort tail,
+   element-wise min/max, power/abs/sign, bitwise, math, cumulative,
+   conditional, set lookup, run ends and random) once each on the card at
+   TAIL_ROWS of BASELINE config 1's columns (10% nulls, NaN in f, a uint64
+   view of key, a dictionary column), timed, each held against the same
+   call on CPU tensors over the first TAIL_WINDOW rows (exact, or within
+   its stated ulp bound; random by its properties), and one query through
+   query() (is_valid, isin, is_null, cast and fill_null) against numpy,
+   whose K2 launches are counted and must be above 0;
+15. takes each probe's, its library call's and the empty kernel's device
+   time per call from torch.profiler's kernel records (PROFILE_CALLS
+   calls), last, because the profiler's CUDA tracing may stay attached to
+   the process and slow the launches after it; every probe must show its
+   a1t:: operator in the profile.
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -153,6 +164,9 @@ SF10_RTOL = 1e-9     # the same bound for the SF10 queries' float64 sums
 U64_N = 10_000_000 // 1024 * 1024    # 9,999,360 rows: 9,765 tiles of 1024
 SF10_SCALE = 1       # TPC-H at SF10 cardinalities
 SORT_ROWS = 100_000_000              # BASELINE config 3
+TAIL_ROWS = 10_000_000               # the compute tail at config 1's size
+TAIL_WINDOW = 1_000_000              # rows held against the CPU
+TAIL_RUNS = 5                        # event timings of each tail call
 # HBM bandwidth from NVIDIA's data sheets, by device name (first match)
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
@@ -249,25 +263,26 @@ def _device_us(fn, calls=PROFILE_CALLS):
             sorted({e.key[:60] for e in kernels}), ops)
 
 
-def _time_pair_ms(fn_a, fn_b, runs=PROBE_RUNS, warmup=3):
-    """Medians of per-call CUDA-event times of two functions called in
-    turns (a b, b a, a b, ...), so that both meet the same host."""
+def _time_turns_ms(fns, runs=PROBE_RUNS, warmup=3):
+    """Medians of per-call CUDA-event times of functions called in turns
+    (a b c, b c a, c a b, ...), so that all meet the same host."""
     for _ in range(warmup):
-        fn_a()
-        fn_b()
-    torch.cuda.synchronize()
-    ev = {fn: [(torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
-          for fn in (fn_a, fn_b)}
-    for i in range(runs):
-        for fn in ((fn_a, fn_b) if i % 2 == 0 else (fn_b, fn_a)):
-            start, end = ev[fn][i]
-            start.record()
+        for fn in fns:
             fn()
+    torch.cuda.synchronize()
+    ev = [[(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+          for _ in fns]
+    for i in range(runs):
+        for j in range(len(fns)):
+            k = (i + j) % len(fns)
+            start, end = ev[k][i]
+            start.record()
+            fns[k]()
             end.record()
     torch.cuda.synchronize()
-    return tuple(statistics.median(s.elapsed_time(e) for s, e in ev[fn])
-                 for fn in (fn_a, fn_b))
+    return tuple(statistics.median(s.elapsed_time(e) for s, e in evs)
+                 for evs in ev)
 
 
 class _Recorder:
@@ -1256,11 +1271,14 @@ PROBE_LINES = {"blocked-1d": 41, "blocked-2d": 50, "manual-dma-matmul": 75,
 
 def phase_probes(dev, peak, device_calls):
     """The probe matrix on the card (counted); every probe must read OK.
-    Returns (launches, errors, rows), each keyed by probe name. A probe's
-    library call is the one PyTorch call that computes its output (none
-    for manual-dma-matmul and dma-in-when, which take two); the two are
-    timed in turns. Puts each probe's (call, library call) into
-    ``device_calls`` for ``phase_probe_device_times``."""
+    Returns (launches, errors, rows), each keyed by probe name. Every
+    probe is an operator of PyTorch's dispatcher; its kernel, the empty
+    kernel behind the same operator path (``probes.run_empty``: the least
+    a probe call can take, its launch bound) and, where one PyTorch call
+    computes its output, that library call (none for manual-dma-matmul
+    and dma-in-when, which take two) are timed in turns. Puts each
+    probe's (call, library call) into ``device_calls`` for
+    ``phase_probe_device_times``."""
     from arrow1_tpu_torch.kernels import probes
 
     torch.cuda.synchronize()
@@ -1280,54 +1298,176 @@ def phase_probes(dev, peak, device_calls):
     errs, rows = {}, {}
     for name, (_, kind) in probes.PROBES.items():
         x = xs[kind]
+        before = probes.run_probe.launches[name]
         got, want = probes.run_probe(name, x), probes.plain(name, x)
+        if probes.run_probe.launches[name] != before + 1:
+            raise AssertionError(f"probe {name}: one call did not count one "
+                                 "launch")
         errs[name] = _int_err(got.long(), want.long())
         if errs[name]:
             raise AssertionError(f"probe {name}: differs from its plain "
                                  "version")
         lib = libraries.get(name)
         run = (lambda name=name, x=x: probes.run_probe(name, x))
+        empty = (lambda x=x: probes.run_empty(x))
         r = rows[name] = dict(
             bound_ms=(x.numel() * 4 + got.numel() * 4) / peak * 1e3,
             plain_ms=_time_ms(lambda: probes.plain(name, x),
-                              runs=PROBE_RUNS),
-            launch_path=("dispatcher" if name in probes.OPERATORS
-                         else "ctypes"))
+                              runs=PROBE_RUNS))
         lib_text = ""
         if lib is None:
-            r.update(ms=_time_ms(run, runs=PROBE_RUNS), library_ms=None,
-                     host_us=_host_us(run))
+            r["ms"], r["empty_kernel_ms"] = _time_turns_ms((run, empty))
+            r["library_ms"] = None
         else:
-            r["ms"], r["library_ms"] = _time_pair_ms(
-                run, lambda lib=lib, x=x: lib(x))
-            r["host_us"] = _host_us(run)
+            r["ms"], r["empty_kernel_ms"], r["library_ms"] = _time_turns_ms(
+                (run, empty, lambda lib=lib, x=x: lib(x)))
             r["library_host_us"] = _host_us(lambda: lib(x))
             lib_text = (f"; library {r['library_ms'] * 1e3:.2f} us "
                         f"(kernel / library {r['ms'] / r['library_ms']:.3f};"
                         f" host {r['library_host_us']:.2f} us)")
-        print(f"probe {name}: OK; {r['launch_path']} launch path, kernel "
+        r["host_us"] = _host_us(run)
+        r["empty_kernel_host_us"] = _host_us(empty)
+        r["share_of_empty_kernel"] = r["empty_kernel_ms"] / r["ms"]
+        print(f"probe {name}: OK; dispatcher launch path, kernel "
               f"{r['ms'] * 1e3:.2f} us (median of {PROBE_RUNS}; host "
               f"{r['host_us']:.2f} us over {HOST_CALLS} back to back), "
-              f"plain {r['plain_ms'] * 1e3:.2f} us{lib_text}, bound "
+              f"empty kernel {r['empty_kernel_ms'] * 1e3:.2f} us in the same "
+              f"turns (host {r['empty_kernel_host_us']:.2f} us; share "
+              f"{r['share_of_empty_kernel']:.3f}), plain "
+              f"{r['plain_ms'] * 1e3:.2f} us{lib_text}, byte bound "
               f"{r['bound_ms'] * 1e3:.4f} us", flush=True)
         device_calls[name] = (run, None if lib is None else
                               (lambda lib=lib, x=x: lib(x)))
+    device_calls["empty kernel"] = (lambda x=xs["x2"]: probes.run_empty(x),
+                                    None)
     return launches, errs, rows
 
 
+def phase_compute_tail(pt, dev, counted):
+    """Every function of the numeric compute tail (99 names,
+    ``arrow1_tpu_torch.compute_tail.CALLS``) once on the card at
+    TAIL_ROWS of BASELINE config 1's columns (seed 0; 10% nulls, NaN in f,
+    a uint64 view of key, a dictionary column), timed (median of
+    TAIL_RUNS CUDA-event runs), and held against the same call on CPU
+    tensors over the first TAIL_WINDOW rows: a map or prefix call's
+    full-size output over its first rows, any other call run on the
+    window on both; exact, or within the call's stated ulp bound. random
+    is held to its properties. Then one query through query(): a filter
+    on f.is_valid() & key.isin(...) & ~v.is_null(), projecting
+    v.cast(float64) and fill_null(f, 0.0), over a Table of 2^20-row
+    batches, against numpy; its K2 launches are counted (set to 0 before,
+    read after) and must be above 0. Returns the launches."""
+    from arrow1_tpu_torch import compute_tail as ct
+    from arrow1_tpu_torch.kernels import compaction
+
+    t_phase = time.perf_counter()
+    cols = ct.tail_columns(TAIL_ROWS, dev, window=TAIL_WINDOW)
+    window = ct.window_of(cols, TAIL_WINDOW)
+    host = ct.on_device(window, "cpu")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    failures, times = [], {}
+    for name, (call, kind, ulps) in ct.CALLS.items():
+        out = call(cols)
+        torch.cuda.synchronize()
+        first = out.columns[0] if isinstance(out, pt.RecordBatch) else out
+        if first.data.device.type != "cuda":
+            failures.append(f"{name}: ran on {first.data.device}")
+            continue
+        times[name] = _time_ms(lambda call=call: call(cols),
+                               runs=TAIL_RUNS, warmup=1)
+        if kind == "random":
+            x = out.data
+            again = call(cols).data
+            if not (torch.equal(x, again) and out.length == TAIL_ROWS and
+                    float(x.min()) >= 0.0 and float(x.max()) < 1.0 and
+                    abs(float(x.mean()) - 0.5) < 1e-3):
+                failures.append(f"{name}: not uniform [0, 1) of its seed")
+            continue
+        want = call(host)
+        if kind in ("map", "prefix"):
+            problem = ct.same_result(out, want, ulps, rows=want.length)
+        else:
+            problem = ct.same_result(call(window), want, ulps)
+        if problem:
+            failures.append(f"{name}: {problem}")
+    if failures:
+        raise AssertionError("compute tail: " + "; ".join(failures))
+    calls_s = time.perf_counter() - t_phase - build_s
+    slowest = sorted(times.items(), key=lambda kv: -kv[1])
+    print(f"compute tail: {len(times)} functions ran on the card at "
+          f"{TAIL_ROWS} rows and matched the CPU over the first "
+          f"{TAIL_WINDOW} rows (columns built in {build_s:.1f} s, calls and "
+          f"checks {calls_s:.1f} s); card ms (median of {TAIL_RUNS}): "
+          + ", ".join(f"{n} {t:.4f}" for n, t in sorted(times.items())),
+          flush=True)
+    print(f"compute tail, slowest on the card: "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in slowest[:8]), flush=True)
+
+    # the query layer: a filter and projection of this slice's methods
+    key, v, f = (cols[c] for c in ("key", "v", "f"))
+    members = list(range(0, 1 << 20, 97))
+    batches = [pt.RecordBatch((key.slice(lo, 1 << 20), v.slice(lo, 1 << 20),
+                               f.slice(lo, 1 << 20)), ("key", "v", "f"))
+               for lo in range(0, TAIL_ROWS, 1 << 20)]
+    table = pt.Table.from_batches(batches)
+
+    def run_query():
+        return (pt.query(table)
+                .filter(pt.field("f").is_valid()
+                        & pt.field("key").isin(members)
+                        & ~pt.field("v").is_null())
+                .project([pt.field("v").cast(pt.float64),
+                          pt.call("fill_null", [pt.field("f"), 0.0])],
+                         ["vf", "f0"])
+                .to_table())
+
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    out = run_query()
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in counted}
+    if launches["compact"] <= 0:
+        raise AssertionError("the compute-tail query launched no K2")
+    kh, vh, fh = (c.data.cpu().numpy() for c in (key, v, f))
+    keep = f.mask().cpu().numpy() & np.isin(kh, members) & \
+        v.mask().cpu().numpy()
+    vf = torch.cat([b["vf"].data for b in out.batches]).cpu().numpy()
+    f0 = torch.cat([b["f0"].data for b in out.batches]).cpu().numpy()
+    if not (np.array_equal(vf, vh[keep].astype(np.float64)) and
+            np.array_equal(f0.view(np.int64), fh[keep].view(np.int64))):
+        raise AssertionError("the compute-tail query differs from numpy")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_query()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"compute-tail query through query() over {len(batches)} "
+          f"batches: {int(keep.sum())} rows, equal to numpy; wall "
+          f"{statistics.median(walls) * 1e3:.3f} ms (median of 3); "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return launches
+
+
 def phase_probe_device_times(device_calls, rows):
-    """Device time per call of each probe and of its library call, from
-    torch.profiler's kernel records. It runs after every other phase: the
-    profiler's CUDA tracing may stay attached to the process and slow the
-    launches that follow it. Also checks that the operator probes went
-    through the dispatcher: the profiler records their a1t:: operators."""
+    """Device time per call of each probe, of its library call and of the
+    empty kernel behind the same operator path, from torch.profiler's
+    kernel records. It runs after every other phase: the profiler's CUDA
+    tracing may stay attached to the process and slow the launches that
+    follow it. Also checks that the probes went through the dispatcher:
+    the profiler records their a1t:: operators."""
     from arrow1_tpu_torch.kernels import probes
 
     for name, (run, lib) in device_calls.items():
-        r = rows[name]
+        r = rows.setdefault(name, {})
         r["device_us"], names, ops = _device_us(run)
-        op = f"a1t::{probes.PROBES[name][0]}"
-        if name in probes.OPERATORS and op not in ops:
+        op = "a1t::" + (probes.PROBES[name][0] if name in probes.PROBES
+                        else probes.EMPTY)
+        if op not in ops:
             raise AssertionError(f"probe {name}: the profiler saw no {op} "
                                  f"call, only {sorted(ops)[:8]}")
         text = f"probe {name}: device {_us_text(r['device_us'])} ({names})"
@@ -1768,6 +1908,10 @@ def main() -> int:
         launches[kname] = launches.get(kname, 0) + count
     torch.cuda.empty_cache()
     phase_config3(dev)
+    torch.cuda.empty_cache()
+    tail_launches = phase_compute_tail(pt, dev, all_kernels)
+    for kname, count in tail_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
     phase_probe_device_times(probe_calls, probe_rows)
 
     result = {"kernels": [
@@ -1811,9 +1955,7 @@ def main() -> int:
              **u64_rows["compact_split"]),
     ] + [
         dict(name=f"run_probes/{pname}", route="cuda",
-             source=("arrow1_tpu_torch/csrc/probe_ops.cu"
-                     if probe_rows[pname]["launch_path"] == "dispatcher"
-                     else "arrow1_tpu_torch/csrc/probes.cu"),
+             source="arrow1_tpu_torch/csrc/probe_ops.cu",
              replaces=f"arrow1_tpu/kernels/tpu_probes.py:{line}",
              launches=probe_launches[pname], max_abs_err=probe_errs[pname],
              bound_by="bytes", **probe_rows[pname])

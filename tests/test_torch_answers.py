@@ -1,0 +1,70 @@
+"""The JAX package's answers for the port's test files, computed in worker
+processes while other tests run.
+
+The JAX package compiles every operation on first use and shape, so a
+file's answers cost seconds of compiling, most of it under the interpreter
+lock. Each file of ``MODULES`` defines ``reference_answers()`` (no
+arguments, the answers as a dict) and takes them in its module fixture
+with ``answers_of(__name__)``. The first fixture that asks (the first
+port test file's, ``test_torch_compaction``, calls ``start`` itself)
+starts a pool of spawned processes that computes the answers of every
+file of ``MODULES`` this test run has imported, in run order, while the
+tests run; each file then waits only for its own. A worker imports the
+test module to compute; the results come back pickled (the JAX package's
+dictionary pools, which hold a lock, pickle as their values). Without a
+pool, or if a worker fails, a file's answers are computed in the test
+process, as before. An idle worker exits with the test process. This file
+holds no tests.
+"""
+
+import copyreg
+import importlib
+import multiprocessing
+import os
+import sys
+from concurrent.futures import ProcessPoolExecutor
+
+_jax_column = importlib.import_module("arrow1_tpu.column")
+copyreg.pickle(_jax_column.Dictionary,
+               lambda d: (_jax_column.Dictionary, (d.values,)))
+
+# the files whose answers the workers compute, in the order they run
+MODULES = ("test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
+           "test_torch_join", "test_torch_pipeline", "test_torch_port_faults",
+           "test_torch_query", "test_torch_registry_sweep",
+           "test_torch_tail")
+# a few workers beside the test process: the answers of all files take
+# about a minute of one core
+WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))
+_futures = {}
+
+
+def _answers(module_name: str) -> dict:
+    return importlib.import_module(module_name).reference_answers()
+
+
+def start() -> None:
+    """Start computing, in worker processes, the answers of every file of
+    MODULES that this test run imported (once)."""
+    if _futures or multiprocessing.parent_process() is not None:
+        return
+    names = [m for m in MODULES if m in sys.modules]
+    try:
+        pool = ProcessPoolExecutor(
+            WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        for name in names:
+            _futures[name] = pool.submit(_answers, name)
+    except Exception:   # noqa: BLE001 (no worker: answers_of computes here)
+        _futures.clear()
+
+
+def answers_of(module_name: str) -> dict:
+    """``module_name``'s answers from its worker, or computed here."""
+    start()
+    future = _futures.get(module_name)
+    if future is not None:
+        try:
+            return future.result(timeout=900)
+        except Exception:   # noqa: BLE001 (computed here instead)
+            pass
+    return _answers(module_name)

@@ -23,6 +23,7 @@ from arrow1_tpu.kernels.compaction_v4 import compact as jax_compact
 
 import arrow1_tpu_torch as pt
 from arrow1_tpu_torch.kernels.compaction import compact
+import test_torch_answers
 
 
 def _columns(rng, n):
@@ -94,7 +95,9 @@ def _jax_padded(sel):
 
 @pytest.fixture(scope="module")
 def jax_results():
-    """Every JAX answer the tests compare against, computed once."""
+    """Every JAX answer the tests compare against, computed once (after
+    starting the workers that compute the later files' answers)."""
+    test_torch_answers.start()
     calls = {("compact", n, sel): (_jax_compact, (n, sel))
              for n in COMPACT_NS for sel in COMPACT_SELS}
     calls.update({("filter",) + c: (_jax_filter, c) for c in FILTER_CASES})

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import arrow1_tpu_torch as pt
+from arrow1_tpu_torch.compute_tail import (CALLS as TAIL_CALLS,
+                                           same_result, tail_columns)
 from arrow1_tpu_torch.errors import Invalid
 from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
                                                  compact_u64,
@@ -25,9 +27,9 @@ from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
 from arrow1_tpu_torch.kernels.hashtable import (broadcast_probe,
                                                 broadcast_probe_plain)
 from arrow1_tpu_torch.kernels import build
-from arrow1_tpu_torch.kernels.probes import (OPERATORS, PROBES, SOURCE,
-                                             plain, probe_inputs, run_probe,
-                                             run_probes)
+from arrow1_tpu_torch.kernels.probes import (OPERATORS, PROBES, plain,
+                                             probe_inputs, run_empty,
+                                             run_probe, run_probes)
 from arrow1_tpu_torch.kernels.segsum import (segment_sum_count,
                                              segment_sum_count_plain)
 from arrow1_tpu_torch.kernels.segsum2 import segment_sums, \
@@ -576,8 +578,14 @@ def test_operator_probes_run_through_the_dispatcher(cuda, name):
     op = f"a1t::{PROBES[name][0]}"
     assert any(e.key == op for e in prof.key_averages()), op
     assert torch.equal(got, getattr(torch.ops.a1t, PROBES[name][0])(x))
-    # the ctypes library no longer has an entry for it
-    assert not hasattr(build.load(SOURCE), f"a1t_{PROBES[name][0]}")
+    # one kernel a call: no memset or copy runs beside it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_probe(name, x)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1, [e.name for e in device]
 
 
 @pytest.mark.parametrize("name", OPERATORS)
@@ -761,3 +769,92 @@ def test_compiled_float_group_by_adds_no_host_sync(cuda):
         pipe._trace(b)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_empty_probe_is_one_launch_of_the_operator_path(cuda):
+    """probe_empty: the probes' checks, an output allocated like x, and one
+    launch of a kernel that does nothing."""
+    x = probe_inputs(cuda)["x2"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = run_empty(x)
+        torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == x.dtype and out.is_cuda
+    assert any(e.key == "a1t::probe_empty" for e in prof.key_averages())
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1, [e.name for e in device]
+    with pytest.raises(TypeError, match="int32 input expected"):
+        run_empty(x.float())
+
+
+# ---- the numeric compute tail: the card against the CPU -------------------
+
+TAIL_ROWS = 50_000
+
+
+@pytest.fixture(scope="module")
+def tail_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on "
+                    "the card")
+    return (tail_columns(TAIL_ROWS, "cuda", window=20_000),
+            tail_columns(TAIL_ROWS, "cpu", window=20_000))
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_CALLS))
+def test_compute_tail_on_card_matches_cpu(cuda, name, tail_inputs):
+    """Each of the slice's 99 functions on card tensors against the same
+    call on CPU tensors: integers, bools and null masks exactly, floats
+    bit for bit or within the call's stated ulp bound (transcendental
+    functions: libdevice against the CPU's libm). ``random`` is held to
+    its properties: the same seed gives the same numbers, in [0, 1)."""
+    call, kind, ulps = TAIL_CALLS[name]
+    card, cpu = tail_inputs
+    got = call(card)
+    if kind == "random":
+        again = call(card).data
+        assert got.data.is_cuda and torch.equal(got.data, again)
+        x = got.data.cpu().numpy()
+        assert got.length == TAIL_ROWS and x.min() >= 0 and x.max() < 1
+        assert abs(x.mean() - 0.5) < 0.01
+        return
+    problem = same_result(got, call(cpu), ulps)
+    assert problem is None, (name, problem)
+
+
+def test_compute_tail_checks_raise_on_card(cuda):
+    """The checked forms raise on the card where they raise on the CPU
+    (one host sync each)."""
+    col = lambda v, t=np.int64: pt.interop.column_from_numpy(  # noqa: E731
+        np.array(v, t), device=cuda)
+    raising = [
+        ("abs_checked", [col([-(2 ** 63), 1])], {}),
+        ("power_checked", [col([10, 2]), col([30, 2])], {}),
+        ("power", [col([2, 2]), col([-1, 2])], {}),
+        ("shift_left_checked", [col([1, 2]), col([3, 64])], {}),
+        ("cumulative_sum_checked", [col([2 ** 62, 2 ** 62])], {}),
+        ("cumulative_prod_checked", [col([2 ** 40, 2 ** 30])], {}),
+        ("pairwise_diff_checked", [col([-(2 ** 63), 1])], {"period": -1}),
+        ("cast", [col([300, 1])], {"target_type": pt.uint8}),
+        ("cast", [col([1.5, 2.0], np.float64)], {"target_type": pt.int64}),
+        ("ln_checked", [col([1.0, -1.0], np.float64)], {}),
+    ]
+    for name, args, options in raising:
+        with pytest.raises(Invalid):
+            pt.call_function(name, args, **options)
+        with pytest.raises(Invalid):
+            pt.call_function(name, [pt.interop.column_from_numpy(
+                a.data.cpu().numpy(), device="cpu") for a in args],
+                **options)
+
+
+def test_drop_null_launches_k2_on_card(cuda):
+    v = pt.interop.column_from_numpy(np.arange(10_000, dtype=np.int64),
+                                     np.arange(10_000) % 3 > 0, device=cuda)
+    before = compact.launches
+    out = pt.call_function("drop_null", [v])
+    assert compact.launches == before + 1
+    assert torch.equal(out.data.cpu(), torch.from_numpy(
+        np.arange(10_000)[np.arange(10_000) % 3 > 0]))

@@ -30,6 +30,7 @@ from arrow1_tpu.kernels.fused_ops import flagship_filter_project
 import arrow1_tpu_torch as pt
 from arrow1_tpu_torch.kernels.fused_ops import (filter_project_flagship,
                                                 filter_project_plain)
+from test_torch_answers import answers_of
 
 
 def _data(n, seed=0):
@@ -92,8 +93,7 @@ def _jax_kernel(sel):
     return bool(ovf), jkey, jproj
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     """Every JAX answer the tests compare against, computed once."""
     calls = {("engine",) + c: (_jax_engine, c) for c in ENGINE_CASES}
     calls.update({("kernel", sel): (_jax_kernel, (sel,))
@@ -101,6 +101,11 @@ def jax_results():
     with ThreadPoolExecutor(len(calls)) as ex:
         futs = {k: ex.submit(fn, *args) for k, (fn, args) in calls.items()}
         return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 @pytest.mark.parametrize("thresh,vthr", ENGINE_CASES)

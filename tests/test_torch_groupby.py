@@ -44,6 +44,7 @@ import arrow1_tpu_torch.kernels.segsum2 as pt_segsum2
 import arrow1_tpu_torch.ops.groupby as pt_groupby
 from arrow1_tpu_torch.errors import NotImplementedError_
 from arrow1_tpu_torch.ops.groupby import _dense_key_group_by
+from test_torch_answers import answers_of
 
 F64_RTOL = 1e-12
 
@@ -380,8 +381,7 @@ def _case_id(case):
     return f"{case[0]}-{'-'.join(case[1])}"
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     """The JAX package's answers to the sorted-path and registry tests,
     computed on a thread pool."""
     jobs = {repr(c): (lambda c=c: a1t.call_function(
@@ -393,10 +393,27 @@ def jax_results():
         return {name: f.result() for name, f in futures.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
+
+
 @pytest.mark.parametrize("name,cols,kwargs", REGISTRY_CASES,
                          ids=[_case_id(c) for c in REGISTRY_CASES])
 def test_registry_function_matches_jax(name, cols, kwargs, jax_results):
     got = pt.call_function(name, [_port(a) for a in _args(cols)], **kwargs)
+    if name == "mode" and cols == ["f"]:
+        # the JAX package ranks NaN before the numbers and keeps 0.0 and
+        # -0.0 apart; pyarrow decides (ROADMAP Queue 3)
+        import pyarrow.compute as pc
+
+        want = pc.mode(_B.column("f").to_arrow(), **kwargs).to_pylist()
+        rows = got.to_arrow().to_pylist()
+        assert [r["count"] for r in rows] == [r["count"] for r in want]
+        # the zeros are one value, of either sign
+        np.testing.assert_array_equal([r["mode"] for r in rows],
+                                      [r["mode"] for r in want])
+        return
     _assert_same(got, jax_results[repr((name, cols, kwargs))])
 
 

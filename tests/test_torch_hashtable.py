@@ -27,6 +27,7 @@ import arrow1_tpu_torch as pt
 import arrow1_tpu_torch.kernels.hashtable as ht
 from arrow1_tpu_torch.interop import tensor_from_u64
 from arrow1_tpu_torch.ops.padded import probe_ranges_sortmerge
+from test_torch_answers import answers_of
 
 U64_MAX = np.iinfo(np.uint64).max
 
@@ -119,14 +120,18 @@ def _jax_hash_table():
     return jt, jht.hash_table_probe(jt, jnp.asarray(probe))
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     calls = {case: (_jax_build_and_probe, (m, bits, dead))
              for case, m, bits, dead in BUILD_CASES}
     calls["hash_table"] = (_jax_hash_table, ())
     with ThreadPoolExecutor(4) as ex:
         futs = {k: ex.submit(fn, *args) for k, (fn, args) in calls.items()}
         return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 @pytest.mark.parametrize("case,m,bits,dead", BUILD_CASES,

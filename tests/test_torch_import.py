@@ -50,6 +50,16 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.models\n"
             "import arrow1_tpu_torch.kernels.compaction_split\n"
             "import arrow1_tpu_torch.kernels.probes\n"
+            "import arrow1_tpu_torch.config\n"
+            "import arrow1_tpu_torch.ops.validity\n"
+            "import arrow1_tpu_torch.ops.cast\n"
+            "import arrow1_tpu_torch.ops.bitwise\n"
+            "import arrow1_tpu_torch.ops.math\n"
+            "import arrow1_tpu_torch.ops.cumulative\n"
+            "import arrow1_tpu_torch.ops.conditional\n"
+            "import arrow1_tpu_torch.ops.set_lookup\n"
+            "import arrow1_tpu_torch.ops.ree\n"
+            "assert len(arrow1_tpu_torch.list_functions()) == 173\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -127,6 +137,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         compaction_split.compact_split(mask, [np.zeros(1024, np.int64)])
     with pytest.raises(RuntimeError, match="CUDA"):
         probes.run_probes()
+    # random makes data: on the card unless the caller names the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.call_function("random", [], length=4, initializer=1)
+    assert pt.call_function("random", [], length=4, initializer=1,
+                            device="cpu").device.type == "cpu"
     assert pt.record_batch(data, device="cpu")["k"].device.type == "cpu"
     assert pt.interop.column_from_numpy(
         data["k"], device="cpu").device.type == "cpu"
@@ -194,19 +209,17 @@ def test_operator_library_is_built_against_torch(monkeypatch):
     for src in build.OPS_SOURCES:
         assert str(build.CSRC / src) in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
-    plain = build.command("nvcc", "probes.cu", out)
+    plain = build.command("nvcc", "compaction.cu", out)
     assert not any(a.startswith(("-I", "-l", "-D")) for a in plain)
-    # the library registers the four operator probes; probes.cu keeps a C
-    # entry for each of the other two only
+    # the library registers every probe and the empty kernel's operator;
+    # no ctypes library holds a probe
     host = (build.CSRC / "probe_ops.cpp").read_text()
     assert sorted(re.findall(r'm\.def\("(\w+)\(', host)) == sorted(
-        probes.PROBES[name][0] for name in probes.OPERATORS)
-    ctypes_entries = re.findall(r"^int (a1t_\w+)\(",
-                                (build.CSRC / "probes.cu").read_text(),
-                                re.MULTILINE)
-    assert ctypes_entries == [entry for name, (entry, _) in
-                              probes.PROBES.items()
-                              if name not in probes.OPERATORS]
+        [probes.PROBES[name][0] for name in probes.OPERATORS] +
+        [probes.EMPTY])
+    assert probes.OPERATORS == tuple(probes.PROBES)
+    assert "probes.cu" not in build.SOURCES
+    assert not (build.CSRC / "probes.cu").exists()
     before = build.library_path(build.OPS)
     monkeypatch.setattr(torch, "__version__", "0.0.0")
     assert build.library_path(build.OPS) != before

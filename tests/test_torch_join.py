@@ -10,9 +10,10 @@ exactly, and so must float64 values the join only moves. Q3's float64
 sums are cumulative sums in each engine's own summation order, so they
 must agree to Q3_RTOL, relative.
 
-The JAX answers are computed once, on a thread pool: the JAX package
-compiles every operation on first use, and the compiles of independent
-calls overlap. Its running max/min scans (``scan_blocked``, in the
+The JAX answers are computed once, on a thread pool, in a worker process
+(tests/test_torch_answers.py) while earlier files' tests run: the JAX
+package compiles every operation on first use, and the compiles of
+independent calls overlap. Its running max/min scans (``scan_blocked``, in the
 sort-merge core, join_asof and the compiled group-by) run under
 ``jax.jit``, one compile per combine function, instead of one compile per
 level of the eager associative scan; jit changes no result of an exact
@@ -37,6 +38,7 @@ import arrow1_tpu.ops.padded as jpadded
 from arrow1_tpu.errors import Invalid as JInvalid
 from arrow1_tpu.exec.compiled import PipelineBuilder as JPipelineBuilder
 from arrow1_tpu.kernels.blockscan import scan_blocked
+from test_torch_answers import answers_of
 from test_tpch_pipeline import make_lineitem, make_orders
 
 import arrow1_tpu_torch as pt
@@ -202,8 +204,7 @@ def _jitted_scan(fn, elems, reverse=False):
     return jitted(elems)
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     """Every JAX answer the tests compare against, computed once."""
     li = a1t.record_batch(make_lineitem())
     orders = a1t.record_batch(make_orders())
@@ -226,6 +227,11 @@ def jax_results():
         out = {k: f.result() for k, f in futs.items()}
     out["q3_inputs"] = (li, orders)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 @pytest.mark.parametrize("keyset,join_type", JOIN_CASES,

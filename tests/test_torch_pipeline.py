@@ -27,6 +27,7 @@ from arrow1_tpu.exec.compiled import PipelineBuilder as JaxPipelineBuilder
 import arrow1_tpu_torch as pt
 from arrow1_tpu_torch.errors import Invalid
 from arrow1_tpu_torch.kernels.compaction import compact
+from test_torch_answers import answers_of
 
 F64_ATOL = 1e-9
 
@@ -167,8 +168,7 @@ def _run_jax(batch_fn, pipeline_fn):
     return jb, pipeline_fn()(jb)
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     """Every JAX pipeline's (input batch, output), computed once."""
     calls = {("entry",) + c: (_jax_entry, c) for c in ENTRY_CASES}
     calls["nulls"] = (_run_jax, (
@@ -190,6 +190,11 @@ def jax_results():
     with ThreadPoolExecutor(len(calls)) as ex:
         futs = {k: ex.submit(fn, *args) for k, (fn, args) in calls.items()}
         return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 @pytest.mark.parametrize("n,ngroups,max_groups", ENTRY_CASES)

@@ -37,6 +37,7 @@ from arrow1_tpu.exec.compiled import PipelineBuilder as JaxPipelineBuilder
 import arrow1_tpu_torch as pt
 import arrow1_tpu_torch.acero as acero
 from arrow1_tpu_torch.errors import Invalid
+from test_torch_answers import answers_of
 
 UNSIGNED = ["uint16", "uint32", "uint64"]
 ARITH = ["add", "subtract", "multiply", "divide"]
@@ -115,8 +116,7 @@ def _ref_call(fn, args):
         return e
 
 
-@pytest.fixture(scope="module")
-def jax_results():
+def reference_answers():
     """The JAX package's answers, computed on a thread pool: it compiles
     every operation on first use, and independent compiles overlap."""
     jobs = {}
@@ -145,6 +145,11 @@ def jax_results():
     with ThreadPoolExecutor(8) as ex:
         futures = {key: ex.submit(job) for key, job in jobs.items()}
         return {key: f.result() for key, f in futures.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 def _port_pair(ty):

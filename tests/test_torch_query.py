@@ -49,6 +49,7 @@ from arrow1_tpu_torch.errors import Invalid
 from arrow1_tpu_torch.exec import plan
 from arrow1_tpu_torch.exec.streaming import (StreamingAggregator,
                                              StreamingGroupBy)
+from test_torch_answers import answers_of
 
 F64_RTOL = 1e-12
 NBATCH = 3
@@ -258,16 +259,21 @@ def _jitted_scan(fn, elems, reverse=False):
     return jitted(elems)
 
 
-@pytest.fixture(scope="module")
-def inputs():
+def _inputs():
     li = _lineitem_table()
     orders = a1t.record_batch(make_orders())
     return {"li": li, "orders": orders, "customers": _customers()}
 
 
 @pytest.fixture(scope="module")
-def jax_results(inputs):
-    """Every JAX answer the tests compare against, computed once."""
+def inputs():
+    return _inputs()
+
+
+def reference_answers():
+    """Every JAX answer the tests compare against, computed once (on its
+    own copy of the seeded inputs)."""
+    inputs = _inputs()
     li, orders, cust = inputs["li"], inputs["orders"], inputs["customers"]
     calls = {
         "q1": (jmodels.q1_pricing_summary, (li,)),
@@ -290,6 +296,11 @@ def jax_results(inputs):
             mp.setattr(mod, "scan_blocked", _jitted_scan)
         futs = {k: ex.submit(fn, *args) for k, (fn, args) in calls.items()}
         return {k: f.result() for k, f in futs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    return answers_of(__name__)
 
 
 def test_table_and_concat_batches_unify_dictionaries(jax_results):
