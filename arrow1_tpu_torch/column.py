@@ -26,15 +26,18 @@ __all__ = ["Column", "Dictionary"]
 
 class Dictionary:
     """Host-side value pool of a dictionary-encoded column. Equality is
-    identity: a pool is created once, at ingest."""
+    identity: a pool is created once, at ingest. ``_byte_matrix`` caches
+    the values as a padded byte matrix per device
+    (ops/strings_device.py)."""
 
-    __slots__ = ("values", "_rank", "_index", "_lock")
+    __slots__ = ("values", "_rank", "_index", "_lock", "_byte_matrix")
 
     def __init__(self, values):
         self.values = np.asarray(values)
         self._rank = None
         self._index = None
         self._lock = threading.Lock()
+        self._byte_matrix = {}   # torch.device -> (uint8[u, L], int32[u])
 
     def __len__(self):
         return len(self.values)
@@ -127,9 +130,10 @@ class Column:
         valid = None if self.validity is None else \
             self.validity.cpu().numpy()
         if self.dtype.is_binary or self.dtype.is_dictionary:
-            out = self.dictionary.values[data].astype(object)
-            if valid is not None:
-                out[~valid] = None
+            # a null slot's code is not read: it need not index the pool
+            out = np.full(len(data), None, dtype=object)
+            keep = slice(None) if valid is None else valid
+            out[keep] = self.dictionary.values[data[keep]]
             return out
         if valid is not None and self.dtype.is_floating:
             data = data.copy()

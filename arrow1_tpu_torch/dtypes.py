@@ -40,7 +40,7 @@ _PHYS = {
 }
 _DICT_KINDS = ("string", "large_string", "binary", "large_binary")
 _LATER = "is not ported yet: temporal, decimal and nested types come with " \
-    "the registry slice (ROADMAP Queue 1 item 10)"
+    "ROADMAP Queue 1 items 7-9"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +154,10 @@ def from_arrow(pa_type) -> DataType:
         return bool_
     if pa.types.is_integer(pa_type) or pa.types.is_floating(pa_type):
         return from_numpy_dtype(pa_type.to_pandas_dtype())
+    if pa.types.is_dictionary(pa_type):
+        # ingest keeps a string pool as codes and decodes a numeric one:
+        # either way the column has the value type
+        return from_arrow(pa_type.value_type)
     for kind in _DICT_KINDS:
         if pa_type == getattr(pa, kind)():
             return DataType(kind)

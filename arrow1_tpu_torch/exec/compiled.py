@@ -24,7 +24,9 @@ from ..expr import Expression
 from ..kernels.radix import (decode_packed_key, field_of, minimal_sort_keys,
                              sort_key_decodable, sort_rows)
 from ..ops import selection
-from ..ops.aggregate import _as_type, _sum_output_type
+from ..ops.aggregate import (_as_type, _sum_output_type, high_words,
+                             mean_from_words)
+from ..ops.common import as_int64
 from ..ops.join import key_planes, key_validity
 from ..ops.padded import (group_sort_padded, join_padded, seg_diff_lo,
                           seg_float_sum, seg_minmax_plane, seg_sum_plane,
@@ -230,10 +232,16 @@ class CompiledPipeline:
                 seen[cname] = (add(col.data), None if col.validity is None
                                else add(col.validity))
             agg_slots.append(seen[cname])
+        # a float64 key's sort key folds -0.0 into +0.0: the emitted key
+        # is read from the group's first row instead
+        raw_key = {}
         for k in keys:
-            if not sort_key_decodable(state.batch.column(k)):
+            kcol = state.batch.column(k)
+            if not sort_key_decodable(kcol):
                 raise Invalid(f"compiled group_by: key {k!r} is not "
                               "decodable from its sort key")
+            if kcol.data.dtype == torch.float64:
+                raw_key[k] = add(kcol.data)
 
         sg, sorted_p, swords, places, words_at_start = group_sort_padded(
             key_pairs, None if state.all_live else state.live, payloads, G)
@@ -296,6 +304,12 @@ class CompiledPipeline:
             acc_dt = torch.float64 if col.dtype.is_floating else torch.int64
             if fn == "count":
                 extra = ()
+            elif fn == "mean" and not col.dtype.is_floating:
+                # the wrapping sum and the high words' sum: the exact sum
+                x64 = as_int64(xs)
+                extra = (sum_ref(x64, mask_s, torch.int64),
+                         sum_ref(high_words(x64, col.dtype.kind == "uint64"),
+                                 mask_s, torch.int64))
             elif fn in ("sum", "mean"):
                 extra = (sum_ref(xs, mask_s, acc_dt),)
             elif fn in ("min", "max"):
@@ -334,6 +348,9 @@ class CompiledPipeline:
                 acc = vcount
             elif fn == "sum":
                 acc = value(extra[0])
+            elif fn == "mean" and len(extra) == 2:
+                acc = mean_from_words(value(extra[1]), value(extra[0]),
+                                      vcount)
             elif fn == "mean":
                 acc = value(extra[0]).to(torch.float64) / vcount.clamp(
                     min=1).to(torch.float64)
@@ -367,6 +384,10 @@ class CompiledPipeline:
                     else swords[wi][sg.startpos]
                 vals.append(field_of(w, shift, bits))
             data, validity = decode_packed_key(col, vals)
+            if k in raw_key:
+                data = sorted_p[raw_key[k]][sg.startpos]
+                if validity is not None:
+                    data = torch.where(validity, data, 0.0)
             cols.append(Column(data, col.dtype,
                                validity=None if validity is None
                                else (validity & sg.group_valid),

@@ -11,7 +11,9 @@ finalize() merges them:
              floating ones
     count:   total of the partial counts
     min/max: reduce over the partials
-    mean:    float64 sum / count over the partials
+    mean:    float64 sum / count over the partials (StreamingGroupBy:
+             of an integer column, the exact sum, from the wrapping sum
+             and the sum of the values' high words)
     var:     Chan et al. pairwise merge of (sum, count, M2)
     group_by: concat the partial group tables -> re-group (exact, since
              each partial table is keyed)
@@ -32,7 +34,8 @@ from ..column import Column
 from ..datum import Scalar
 from ..errors import Invalid
 from ..ops.aggregate import (_accumulator, _float_values, _min_max_exec,
-                             _sum_output_type)
+                             _sum_output_type, high_words, mean_from_words)
+from ..ops.common import as_int64
 from ..table import RecordBatch, concat_batches
 
 __all__ = ["StreamingAggregator", "StreamingGroupBy",
@@ -154,24 +157,42 @@ class StreamingGroupBy:
         self._partials: List[RecordBatch] = []
         self._mean_requested = [(c, f) for c, f in self.aggregates
                                 if f == "mean"]
-        # mean decomposes to sum+count partials
-        expanded = []
         for c, f in self.aggregates:
-            if f == "mean":
-                expanded += [(c, "sum"), (c, "count")]
-            elif f in self.MERGEABLE:
-                expanded.append((c, f))
-            else:
+            if f != "mean" and f not in self.MERGEABLE:
                 raise Invalid(f"streaming group_by: {f!r} not mergeable")
-        self._expanded = list(dict.fromkeys(expanded))
+        self._expanded = None   # set from the first batch's types
+        self._int_means = set()
 
     @staticmethod
     def _merge_fn(f: str) -> str:
         return "sum" if f in ("sum", "count", "count_all") else f
 
+    def _expand(self, batch: RecordBatch):
+        """Mean decomposes to sum and count partials; an integer column's
+        also to the sum of its high words (``c#hi``, ``high_words``),
+        which does not wrap: with the wrapping sum it gives the exact
+        sum, whose mean this is."""
+        expanded = []
+        for c, f in self.aggregates:
+            if f != "mean":
+                expanded.append((c, f))
+                continue
+            expanded += [(c, "sum"), (c, "count")]
+            if not batch.column(c).dtype.is_floating:
+                self._int_means.add(c)
+                expanded.append((f"{c}#hi", "sum"))
+        self._expanded = list(dict.fromkeys(expanded))
+
     def consume(self, batch: RecordBatch):
         from ..ops.groupby import group_by
 
+        if self._expanded is None:
+            self._expand(batch)
+        for c in self._int_means:
+            col = batch.column(c)
+            batch = batch.set_column(f"{c}#hi", Column(high_words(
+                as_int64(col.data), col.dtype.kind == "uint64"), dt.int64,
+                validity=col.validity))
         self._partials.append(group_by(batch, self.keys, self._expanded))
 
     def finalize(self) -> RecordBatch:
@@ -188,9 +209,13 @@ class StreamingGroupBy:
         result = result.rename({f"{c}_{f}_{self._merge_fn(f)}": f"{c}_{f}"
                                 for c, f in self._expanded})
         for c, f in self._mean_requested:
-            s = result.column(f"{c}_sum")
             n = result.column(f"{c}_count")
-            mean = s.data.to(torch.float64) / n.data.clamp(min=1)
+            s = result.column(f"{c}_sum")
+            if c in self._int_means:
+                mean = mean_from_words(result.column(f"{c}#hi_sum").data,
+                                       as_int64(s.data), n.data)
+            else:
+                mean = s.data.to(torch.float64) / n.data.clamp(min=1)
             validity = None
             if s.validity is not None or bool((n.data == 0).any()):
                 validity = n.data > 0

@@ -90,8 +90,10 @@ def column_from_arrow(arr, device=None) -> Column:
 
     device = resolve_device(device)
     if isinstance(arr, pa.ChunkedArray):
-        arr = arr.combine_chunks()
+        arr = arr.combine_chunks()   # dictionary chunks: pools unified
     t = dt.from_arrow(arr.type)
+    if pa.types.is_dictionary(arr.type):
+        return _from_dictionary_array(arr, t, device)
     valid = None
     if arr.null_count:
         valid = np.asarray(pc.is_valid(arr), dtype=bool)
@@ -107,6 +109,40 @@ def column_from_arrow(arr, device=None) -> Column:
         arr = arr.fill_null(False if t.is_boolean else 0)
     data = np.asarray(arr.to_numpy(zero_copy_only=False)).astype(
         t.numpy_dtype(), copy=False)
+    return Column(_to_device(data, device), t,
+                  validity=None if valid is None
+                  else _to_device(valid, device))
+
+
+def _from_dictionary_array(arr, t: dt.DataType, device) -> Column:
+    """A pyarrow DictionaryArray as a column of its value type (reference
+    ``_from_dictionary_array``): the indices become int32 codes, null
+    slots code 0, and the pool stays on the host. A slot whose pool value
+    is null is null. A numeric pool is gathered through the codes, as
+    pyarrow reads such an array (the JAX package keeps the codes as the
+    values; ROADMAP Queue 3)."""
+    import pyarrow.compute as pc
+
+    codes = np.asarray(arr.indices.fill_null(0)).astype(np.int32)
+    pool_arr = arr.dictionary
+    valid = np.asarray(pc.is_valid(arr.indices), dtype=bool) \
+        if arr.indices.null_count else None
+    if pool_arr.null_count and len(codes):
+        pool_ok = np.asarray(pc.is_valid(pool_arr), dtype=bool)
+        valid = pool_ok[codes] if valid is None else valid & pool_ok[codes]
+    if t.is_binary:
+        pool = pool_arr.to_numpy(zero_copy_only=False)
+        if len(set(pool.tolist())) != len(pool):   # one code per value
+            pool, inv = np.unique(pool.astype(object), return_inverse=True)
+            codes = inv.reshape(-1).astype(np.int32)[codes]
+        return Column(_to_device(codes, device), t,
+                      validity=None if valid is None
+                      else _to_device(valid, device),
+                      dictionary=Dictionary(pool))
+    pool = np.asarray(pool_arr.fill_null(False if t.is_boolean else 0)
+                      .to_numpy(zero_copy_only=False)).astype(t.numpy_dtype())
+    data = pool[codes] if len(pool) else np.zeros(len(codes),
+                                                  t.numpy_dtype())
     return Column(_to_device(data, device), t,
                   validity=None if valid is None
                   else _to_device(valid, device))

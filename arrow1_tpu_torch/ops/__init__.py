@@ -2,4 +2,5 @@
 
 from . import (aggregate, arithmetic, bitwise, boolean, cast,  # noqa: F401
                compare, conditional, cumulative, dictionary, groupby, hash,
-               join, math, ree, selection, set_lookup, sort, validity)
+               join, math, ree, selection, set_lookup, sort, strings,
+               validity)

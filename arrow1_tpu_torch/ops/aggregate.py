@@ -111,6 +111,38 @@ def _as_type(acc: torch.Tensor, t: dt.DataType) -> torch.Tensor:
     return acc.to(phys)
 
 
+def high_words(x: torch.Tensor, unsigned64: bool = False) -> torch.Tensor:
+    """The high 32 bits of an integer column's int64 values (uint64 bit
+    patterns when ``unsigned64``), as int64. Their sum cannot wrap over
+    fewer than 2^31 rows, and with the wrapping int64 sum it gives the
+    exact sum: ``mean_from_words``."""
+    hi = x >> 32
+    return hi & 0xFFFFFFFF if unsigned64 else hi
+
+
+def mean_from_words(hi: torch.Tensor, wrapped: torch.Tensor,
+                    count: torch.Tensor) -> torch.Tensor:
+    """float64 mean of the exact sum of values whose int64 sum wraps to
+    ``wrapped`` and whose high words sum to ``hi`` (``high_words``), over
+    ``count`` (1 where it is 0). The exact sum is ``hi * 2^32 + lo`` with
+    lo the sum of the low words, in [0, count * 2^32): lo is ``wrapped -
+    hi * 2^32`` mod 2^64. A sum within 2^53 is one float64 division, as
+    sum / count; a larger one takes its integer quotient exactly and
+    rounds only the fraction, within an ulp of the exact mean."""
+    lo = wrapped - (hi << 32)
+    n = count.clamp(min=1).to(torch.int64)
+    nf = n.to(torch.float64)
+    small = (hi.abs() < 1 << 20) & (lo < 1 << 52)
+    direct = (hi * (1 << 32) + lo).to(torch.float64) / nf
+    qh = torch.div(hi, n, rounding_mode="floor")
+    rest = (hi - qh * n) * (1 << 32) + lo   # in [0, n * 2^33)
+    qr = torch.div(rest, n, rounding_mode="floor")
+    frac = (rest - qr * n).to(torch.float64) / nf
+    split = qh.to(torch.float64) * float(1 << 32) + (qr.to(torch.float64)
+                                                     + frac)
+    return torch.where(small, direct, split)
+
+
 def _float_values(col: Column) -> torch.Tensor:
     """The values as float64, 0.0 at nulls."""
     x = col.data.to(torch.float64)

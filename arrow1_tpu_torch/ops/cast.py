@@ -1,13 +1,18 @@
-"""Numeric casts (counterpart of arrow1_tpu/ops/cast.py, its numeric part).
+"""Casts (counterpart of arrow1_tpu/ops/cast.py, all but its temporal and
+decimal parts).
 
-Covered: int, uint, float and bool between each other, and an explicit
-dictionary column to its values. ``CastOptions`` keeps the reference's
-safety toggles (cast.h:44): a safe cast raises on integer overflow, on a
-float to integer cast that would drop a fraction, and on NaN or inf into
-an integer, each from a device flag reduced on the host (one sync), as
-the checked arithmetic does. Casts from or to strings, temporal and
-decimal types are later slices of the port and raise
-``NotImplementedError_``.
+Covered: int, uint, float and bool between each other, an explicit
+dictionary column to its values, numeric and bool to string (each
+distinct value formatted once on the host, ops/formatting.py), string to
+numeric and bool (the pool parsed on the host, gathered by the codes on
+the device; a value that does not parse raises only where a live row
+holds it) and string to string and binary. ``CastOptions`` keeps the
+reference's safety toggles (cast.h:44): a safe cast raises on integer
+overflow, on a float to integer cast that would drop a fraction, and on
+NaN or inf into an integer, each from a device flag reduced on the host
+(one sync), as the checked arithmetic does. Temporal and decimal types
+are not types of the port yet: a cast to one raises
+``NotImplementedError_`` (ROADMAP Queue 1 items 7 and 8).
 
 uint16, uint32 and uint64 move through int64 (``dtypes.as_int64``): torch
 converts and compares little in them. An unsafe float to integer cast of
@@ -24,18 +29,19 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..column import Column
-from ..datum import as_datum
+from ..column import Column, Dictionary
+from ..datum import Scalar, as_datum
 from ..errors import Invalid, NotImplementedError_
 from ..kernels.radix import _SIGN
 from ..registry import register_function
 from .arithmetic import _raise_if
 from .common import as_int64, from_int64, result_column, unpack
+from .strings import with_pool
 
 __all__ = ["CastOptions", "cast", "convert", "int_range"]
 
-_LATER = ("casts from or to strings, temporal and decimal types are not "
-          "ported yet (ROADMAP Queue 1 items 6-8)")
+_LATER = ("casts from or to temporal and decimal types are not ported yet "
+          "(ROADMAP Queue 1 items 7-8)")
 
 
 @dataclasses.dataclass
@@ -174,13 +180,81 @@ def cast(value, target_type: dt.DataType, safe: bool = True,
     return _cast_exec([as_datum(value)], options, None)
 
 
+def _parse_string_uniques(values, dst: dt.DataType):
+    """Parse a pool's values on the host with the value parsers
+    (ops/formatting.py; reference util/value_parsing.h): (table of
+    ``dst``'s storage, ok flags, the first error message). A value that
+    does not parse raises only if a live row holds it."""
+    from . import formatting as F
+
+    vals = [v.decode() if isinstance(v, (bytes, np.bytes_)) else str(v)
+            for v in values]
+    ok = [True] * len(vals)
+    err = [""]
+
+    def attempt(fn, i, default):
+        try:
+            return fn()
+        except (Invalid, ValueError) as e:
+            ok[i] = False
+            if not err[0]:
+                err[0] = str(e)
+            return default
+
+    if dst.is_integer:
+        table = [attempt(lambda v=v: F.parse_int(v, dst.kind), i, 0)
+                 for i, v in enumerate(vals)]
+        if dst.kind == "uint64":   # its storage holds the bits
+            table = [t - (1 << 64) if t >= 1 << 63 else t for t in table]
+            return np.array(table, np.int64).view(np.uint64), ok, err[0]
+    elif dst.is_floating:
+        table = [attempt(lambda v=v: F.parse_float(v), i, 0.0)
+                 for i, v in enumerate(vals)]
+    elif dst.is_boolean:
+        table = [attempt(lambda v=v: F.parse_bool(v), i, False)
+                 for i, v in enumerate(vals)]
+    else:
+        raise Invalid(f"unsupported cast string -> {dst}")
+    return np.array(table, dst.numpy_dtype()), ok, err[0]
+
+
+def _format_to_strings(x: torch.Tensor, src: dt.DataType):
+    """Format the distinct values of ``x`` on the host (ops/formatting.py;
+    reference util/formatting.h): (their strings, each row's index among
+    them, int32 on ``x``'s device). The distinct values are found on the
+    device; floats by their bits, so -0.0 and 0.0 format apart."""
+    from . import formatting as F
+
+    if src.is_boolean:
+        return np.array(["false", "true"], object), x.to(torch.int32)
+    if src.is_floating:
+        if x.dtype == torch.float16:
+            x = x.to(torch.float32)
+        bits = x.view(torch.int32 if x.dtype == torch.float32
+                      else torch.int64)
+        uniq, inv = torch.unique(bits, return_inverse=True)
+        f32 = src.kind != "float64"
+        floats = uniq.cpu().numpy().view(np.float32 if f32 else np.float64)
+        strs = [F.format_float(v, f32) for v in floats]
+    else:
+        uniq, inv = torch.unique(as_int64(x), return_inverse=True)
+        ints = uniq.cpu().numpy()
+        if src.kind == "uint64":
+            ints = ints.view(np.uint64)
+        strs = [str(int(v)) for v in ints]
+    return np.array(strs, object), inv.to(torch.int32)
+
+
 def _cast_exec(args, options: CastOptions, ctx):
     (a,) = args
     dst = options.target_type if options is not None else None
     if dst is None:
         raise Invalid("cast requires target_type")
     if not isinstance(dst, dt.DataType):
-        dst = dt.from_arrow(dst)
+        try:
+            dst = dt.from_arrow(dst)
+        except NotImplementedError_:
+            raise NotImplementedError_(f"cast to {dst}: {_LATER}") from None
     src = a.dtype
     if src == dst:
         return a
@@ -194,8 +268,12 @@ def _cast_exec(args, options: CastOptions, ctx):
         vt = src.value_type
         if dst.is_binary:
             return result_column(x, dst, validity, n, dictionary=d)
-        if vt.is_binary:
-            raise NotImplementedError_(f"cast {src} -> {dst}: {_LATER}")
+        if vt.is_binary:   # the codes as a string column of the pool
+            inner = Column(x, vt, validity=None if validity is None
+                           or validity is False else validity,
+                           dictionary=d) if n is not None else \
+                Scalar(x, vt, is_valid=validity is not False, dictionary=d)
+            return _cast_exec([inner], options, ctx)
         lut = torch.from_numpy(np.asarray(d.values).astype(
             vt.numpy_dtype())).to(x.device)
         decoded = lut[x.long().clamp(0, max(len(d) - 1, 0))] if len(d) \
@@ -206,12 +284,33 @@ def _cast_exec(args, options: CastOptions, ctx):
                        or validity is False else validity)
         return _cast_exec([inner], options, ctx)
     if src.is_binary:
+        d = a.dictionary
         if dst.is_binary:
-            return result_column(x, dst, validity, n,
-                                 dictionary=a.dictionary)
-        raise NotImplementedError_(f"cast {src} -> {dst}: {_LATER}")
-    if dst.is_binary or dst.is_dictionary:
-        raise NotImplementedError_(f"cast {src} -> {dst}: {_LATER}")
+            return result_column(x, dst, validity, n, dictionary=d)
+        if dst.is_dictionary:
+            raise Invalid(f"unsupported cast {src} -> {dst}")
+        # parse the pool on the host, gather on the device (reference
+        # scalar_cast_string.cc through util/value_parsing.h)
+        table, ok, err = _parse_string_uniques(d.values, dst)
+        codes = x.long().clamp(0, max(len(d) - 1, 0))
+        if not all(ok):
+            ok_t = torch.from_numpy(np.array(ok)).to(x.device)
+            _raise_if(~ok_t[codes], err, validity)
+        data = torch.from_numpy(table).to(x.device)[codes] if len(d) else \
+            torch.zeros_like(x, dtype=dst.physical_dtype())
+        return result_column(data, dst, validity, n)
+    if dst.is_binary:
+        # numeric and bool -> string: each distinct value formatted once
+        # (reference util/formatting.h), the rows keep its index as code
+        strs, codes = _format_to_strings(x, src)
+        if n is None:
+            return Scalar(codes, dst, is_valid=validity is not False,
+                          dictionary=Dictionary(strs))
+        if validity is False:
+            validity = torch.zeros(n, dtype=torch.bool, device=x.device)
+        return with_pool(codes, dst, validity, strs)
+    if dst.is_dictionary:
+        raise Invalid(f"unsupported cast {src} -> {dst}")
     return result_column(_cast_numeric(x, src, dst, options, validity),
                          dst, validity, n)
 

@@ -1,10 +1,10 @@
 """Comparison kernels: equal/not_equal/greater/greater_equal/less/less_equal
 and min_element_wise/max_element_wise (counterpart of
-arrow1_tpu/ops/compare.py; numeric and bool, and dictionary strings for
-the element-wise min and max). Inputs promote to a common type; compare
+arrow1_tpu/ops/compare.py; numeric, bool and dictionary strings). Inputs promote to a common type; compare
 outputs are bool with intersection nulls. uint16, uint32 and uint64
 compare in int64 (``minmax_domain``): torch has no order compare for
-them.
+them. Dictionary strings compare their codes (equality) or ranks (order)
+on the column's device; only the pool's rank table is made on the host.
 
 The element-wise min and max follow pyarrow where the reference does not
 (ROADMAP Queue 3): a NaN loses to any number (NaN only where every input
@@ -22,7 +22,7 @@ import torch
 from .. import dtypes as dt
 from ..column import Column
 from ..datum import Scalar
-from ..errors import NotImplementedError_
+from ..errors import Invalid
 from ..registry import register_function
 from .common import (broadcast_length, column_device, common_type,
                      intersect_validity, minmax_domain, result_column,
@@ -41,14 +41,74 @@ _OPS = {
 }
 
 
+_ORDERED = ("greater", "greater_equal", "less", "less_equal")
+
+
+def _rank_table(d, device, scale: int = 1) -> torch.Tensor:
+    """``scale`` * rank of each code, on ``device`` (one copy)."""
+    return torch.from_numpy(d.rank.astype(np.int64) * scale).to(device)
+
+
+def _string_operands(name, args):
+    """(x, y, validities, n) for a compare of dictionary strings: device
+    integers that compare as the values do (reference
+    ``_dict_compare_values``). Against a scalar, equality compares the
+    codes with the scalar's code and an order compare gathers twice the
+    rank of each code, the scalar placed at an even rank when the pool
+    holds it and between two ranks otherwise; two columns go through one
+    pool (``one_pool``), then codes or gathered ranks. Two scalars give
+    the sign of their comparison against 0."""
+    ordered = name in _ORDERED
+    a, b = args
+    if isinstance(a, Scalar) and isinstance(b, Scalar):
+        x, y = a.as_py(), b.as_py()
+        valid = x is not None and y is not None
+        return (torch.tensor(valid and (x > y) - (x < y)), torch.tensor(0),
+                [None if valid else False], None)
+    if isinstance(a, Scalar) or isinstance(b, Scalar):
+        flipped = isinstance(a, Scalar)
+        col, s = (b, a) if flipped else (a, b)
+        d = col.dictionary
+        sval = s.as_py() if s.is_valid else None
+        if sval is None:
+            x, y = col.data, -1
+        elif ordered:
+            sorted_vals = np.empty(len(d), dtype=object)
+            sorted_vals[d.rank] = d.values
+            below = int(np.searchsorted(sorted_vals, sval, side="left"))
+            x = torch.index_select(_rank_table(d, col.device, 2), 0,
+                                   col.data.clamp(0, max(len(d) - 1, 0))) \
+                if len(d) else col.data.to(torch.int64)
+            y = 2 * below - (0 if sval in d.index else 1)
+        else:
+            x, y = col.data, d.index.get(sval, -1)
+        y = torch.tensor(y, dtype=x.dtype)
+        validities = [col.validity, None if s.is_valid else False]
+        if flipped:
+            x, y = y, x
+            validities.reverse()
+        return x, y, validities, col.length
+    n = a.length
+    cols = one_pool(args, n, a.device)
+    if ordered and len(cols[0].dictionary):
+        rank = _rank_table(cols[0].dictionary, a.device)
+        x, y = (torch.index_select(rank, 0, c.data) for c in cols)
+    else:
+        x, y = (c.data for c in cols)
+    return x, y, [c.validity for c in cols], n
+
+
 def _compare_exec(name):
     op = _OPS[name]
 
     def exec_fn(args, options, ctx):
         if any(a.dtype.is_binary for a in args):
-            raise NotImplementedError_(
-                f"{name} over dictionary-encoded strings is not ported yet "
-                "(registry slice, ROADMAP Queue 1 item 10)")
+            if not all(a.dtype.is_binary for a in args):
+                raise Invalid(f"{name}: cannot compare string with "
+                              "non-string")
+            x, y, validities, n = _string_operands(name, args)
+            return result_column(op(x, y), dt.bool_,
+                                 intersect_validity(validities), n)
         (x, y), validities, n = unpack(args, common_type(args))
         x, y = minmax_domain(x)[0], minmax_domain(y)[0]
         return result_column(op(x, y), dt.bool_,

@@ -38,7 +38,8 @@ from ..errors import Invalid, NotImplementedError_
 from ..kernels.segsum2 import MAX_G, segment_sums
 from ..registry import register_function
 from ..table import RecordBatch
-from .aggregate import _as_type, _sum_output_type
+from .aggregate import (_as_type, _sum_output_type, high_words,
+                        mean_from_words)
 from .common import as_int64, minmax_domain
 from .hash import (group_ids_of, grouping_by_keys, grouping_from_ids,
                    grouping_full, grouping_key_pairs, segment_count,
@@ -49,7 +50,7 @@ from .sort import normalize_sort_key, sort_indices_device
 __all__ = ["group_by", "grouped_aggregate"]
 
 _NESTED = "is not ported yet: list results come with the nested slice " \
-    "(ROADMAP Queue 1 item 10)"
+    "(ROADMAP Queue 1 item 9)"
 
 
 def _segment_count(valid, gids: torch.Tensor, ngroups: int) -> torch.Tensor:
@@ -411,12 +412,17 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
     kd = kc.data.to(torch.int64)
     kvalid = kc.validity
     if kvalid is None:
-        red = torch.stack([kd.min(), kd.max(), kd.new_ones(())])
+        red = [*torch.aminmax(kd), kd.new_ones(())]
     else:
-        red = torch.stack([torch.where(kvalid, kd, 1 << 62).min(),
-                           torch.where(kvalid, kd, -(1 << 62)).max(),
-                           kvalid.any().to(torch.int64)])
-    kmin, kmax, any_valid_key = red.tolist()   # the range: one host sync
+        red = [torch.where(kvalid, kd, 1 << 62).min(),
+               torch.where(kvalid, kd, -(1 << 62)).max(),
+               kvalid.any().to(torch.int64)]
+    # a mean's column range says whether its int64 sum can wrap
+    mean_cols = list(dict.fromkeys(c for c, fn in aggregates
+                                   if fn == "mean"))
+    for nm in mean_cols:
+        red.extend(torch.aminmax(as_int64(batch.column(nm).data)))
+    kmin, kmax, any_valid_key, *ranges = torch.stack(red).tolist()
     if not any_valid_key:
         kmin = kmax = 0
     has_null_key = kvalid is not None
@@ -430,13 +436,21 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
 
     cols = [(as_int64(batch.column(nm).data), batch.column(nm).validity)
             for nm in vals_needed]
+    # a mean whose sum can wrap adds its column's high words (their sum
+    # cannot): the exact sum for its mean (``mean_from_words``)
+    wide = [nm for nm, lo, hi in zip(mean_cols, ranges[::2], ranges[1::2])
+            if max(-lo, hi) * n >= 1 << 63]
+    for nm in wide:
+        x, valid = cols[vals_needed.index(nm)]
+        cols.append((high_words(x), valid))
     cnt_only = []   # count-only columns not already carried
     for col_name, fn in aggregates:
         if fn == "count" and col_name not in vals_needed and \
                 col_name not in cnt_only:
             cnt_only.append(col_name)
             cols.append((None, batch.column(col_name).validity))
-    col_index = {nm: i for i, nm in enumerate(vals_needed + cnt_only)}
+    names = vals_needed + [f"{nm}#hi" for nm in wide] + cnt_only
+    col_index = {nm: i for i, nm in enumerate(names)}
 
     occ, results = segment_sums(gid, cols, G)
     idx = torch.nonzero(occ > 0).squeeze(1)   # sizes the output: a sync
@@ -451,11 +465,13 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
             out_t = _sum_output_type(batch.column(col_name).dtype)
             out_cols.append(Column(_as_type(s[idx], out_t), out_t,
                                    validity=cnt_g > 0))
-        else:   # mean = exact integer sum / count, in float64
-            out_cols.append(Column(
-                s[idx].to(torch.float64) /
-                cnt_g.clamp(min=1).to(torch.float64), dt.float64,
-                validity=cnt_g > 0))
+        else:   # mean of the exact sum
+            mean = s[idx].to(torch.float64) / \
+                cnt_g.clamp(min=1).to(torch.float64) \
+                if col_name not in wide else mean_from_words(
+                    results[col_index[f"{col_name}#hi"]][1][idx], s[idx],
+                    cnt_g)
+            out_cols.append(Column(mean, dt.float64, validity=cnt_g > 0))
         out_names.append(f"{col_name}_{fn}")
     out_names.append(keys[0])
     out_cols.append(Column((kmin + idx).to(kc.data.dtype), kc.dtype,

@@ -119,7 +119,17 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    its stated ulp bound; random by its properties), and one query through
    query() (is_valid, isin, is_null, cast and fill_null) against numpy,
    whose K2 launches are counted and must be above 0;
-15. takes each probe's, its library call's and the empty kernel's device
+15. runs the strings (arrow1_tpu_torch/compute_strings.py: 73 names)
+   once each on the card over STRING_ROWS-row dictionary columns from a
+   seed, TPC-H's l_shipmode (7 values) and SF10's c_name (1.5M values),
+   the byte-matrix names on both and the host-routed ones on an SF1
+   c_name (150K values), each call's wall time printed and its output
+   held against the same call on CPU tensors over the first
+   STRING_WINDOW rows, exactly; then one query() with a string filter
+   (starts_with and ==) and projection (utf8_length, ascii_lower) over
+   ten 2^20-row batches against numpy, whose K2 launches are counted and
+   must be above 0;
+16. takes each probe's, its library call's and the empty kernel's device
    time per call from torch.profiler's kernel records (PROFILE_CALLS
    calls), last, because the profiler's CUDA tracing may stay attached to
    the process and slow the launches after it; every probe must show its
@@ -167,6 +177,11 @@ SORT_ROWS = 100_000_000              # BASELINE config 3
 TAIL_ROWS = 10_000_000               # the compute tail at config 1's size
 TAIL_WINDOW = 1_000_000              # rows held against the CPU
 TAIL_RUNS = 5                        # event timings of each tail call
+STRING_ROWS = 10_000_000             # each string column's rows
+STRING_WINDOW = 1_000_000            # rows held against the CPU
+SF10_CUSTOMERS = 1_500_000           # c_name's distinct values at SF10
+SF1_CUSTOMERS = 150_000              # the host-routed names' pool (SF1)
+STRING_BATCHES = 10                  # the string query's 2^20-row batches
 # HBM bandwidth from NVIDIA's data sheets, by device name (first match)
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
@@ -1453,6 +1468,128 @@ def phase_compute_tail(pt, dev, counted):
     return launches
 
 
+def _wall_ms(fn):
+    """One call's wall time, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_strings(pt, dev, counted):
+    """Every string name (73, ``arrow1_tpu_torch.compute_strings.CALLS``)
+    once on the card over STRING_ROWS-row dictionary columns from a seed:
+    TPC-H's l_shipmode (7 values) and SF10's c_name (SF10_CUSTOMERS
+    distinct ``Customer#%09d``, 1% null). The device-routed names (the
+    byte matrix) run on both columns, the host-routed ones on a c_name
+    over SF1_CUSTOMERS values. Each call's wall time is printed, and its
+    output is held against the same call on CPU tensors over the first
+    STRING_WINDOW rows, exactly. Each pool's byte-matrix build is timed
+    first. Then one query() over STRING_BATCHES 2^20-row batches: filter
+    starts_with(c_name, "Customer#0000") & (l_shipmode == "AIR"), project
+    utf8_length(c_name) and ascii_lower(l_shipmode), against numpy; its
+    K2 launches are counted (set to 0 before, read after) and must be
+    above 0. Returns the launches."""
+    from arrow1_tpu_torch import compute_strings as cs
+    from arrow1_tpu_torch.ops.strings_device import byte_matrix
+
+    t_phase = time.perf_counter()
+    big = cs.tpch_string_columns(STRING_ROWS, dev, SF10_CUSTOMERS, seed=0)
+    sf1 = cs.tpch_string_columns(STRING_ROWS, dev, SF1_CUSTOMERS, seed=1)
+    sets = {"l_shipmode": dict(big, s=big["t"], a=big["t"]),
+            "c_name": big, "c_name_sf1": sf1}
+    windows = {label: cs.on_device(cols, "cpu", STRING_WINDOW)
+               for label, cols in sets.items()}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    matrix_ms = {}
+    for label, cols in sets.items():
+        _, matrix_ms[label] = _wall_ms(
+            lambda d=cols["s"].dictionary: byte_matrix(d, dev))
+    print("strings: byte-matrix build per pool (ms, one call): "
+          + ", ".join(f"{label} ({len(cols['s'].dictionary)} values) "
+                      f"{matrix_ms[label]:.3f}"
+                      for label, cols in sets.items()), flush=True)
+    failures, times = [], {}
+    for name in cs.CALLS:
+        labels = ("l_shipmode", "c_name") if cs.route(name) == "device" \
+            else ("c_name_sf1",)
+        for label in labels:
+            out, ms = _wall_ms(lambda: cs.call(name, sets[label]))
+            first = out.columns[0] if isinstance(out, pt.RecordBatch) \
+                else out
+            if first.data.device.type != "cuda" or \
+                    first.length != STRING_ROWS:
+                failures.append(f"{name} on {label}: ran on "
+                                f"{first.data.device}, {first.length} rows")
+                continue
+            times[name, label] = ms
+            problem = cs.same_result(out, cs.call(name, windows[label]),
+                                     rows=STRING_WINDOW)
+            if problem:
+                failures.append(f"{name} on {label}: {problem}")
+    if failures:
+        raise AssertionError("strings: " + "; ".join(failures))
+    calls_s = time.perf_counter() - t_phase - build_s
+    for label in sets:
+        row = sorted((n, t) for (n, lb), t in times.items() if lb == label)
+        if row:
+            print(f"strings on {label}, {STRING_ROWS} rows, card wall ms "
+                  "(one call): " + ", ".join(f"{n} {t:.3f}" for n, t in row),
+                  flush=True)
+    print(f"strings: {len({n for n, _ in times})} names, {len(times)} calls "
+          f"on the card, each equal to the CPU over the first "
+          f"{STRING_WINDOW} rows (columns built in {build_s:.1f} s, calls "
+          f"and checks {calls_s:.1f} s)", flush=True)
+
+    # the query layer: a string filter and projection
+    rows = STRING_BATCHES << 20
+    c_name, mode = big["s"].slice(0, rows), big["t"].slice(0, rows)
+    table = pt.Table.from_batches([
+        pt.RecordBatch((c_name.slice(lo, 1 << 20), mode.slice(lo, 1 << 20)),
+                       ("c_name", "l_shipmode"))
+        for lo in range(0, rows, 1 << 20)])
+
+    def run_query():
+        return (pt.query(table)
+                .filter(pt.call("starts_with", [pt.field("c_name")],
+                                pattern="Customer#0000")
+                        & (pt.field("l_shipmode") == "AIR"))
+                .project([pt.call("utf8_length", [pt.field("c_name")]),
+                          pt.call("ascii_lower", [pt.field("l_shipmode")])],
+                         ["name_length", "mode"])
+                .to_table())
+
+    for kern in counted:
+        kern.launches = 0
+    out, first_ms = _wall_ms(run_query)
+    launches = {kern.__name__: kern.launches for kern in counted}
+    if launches["compact"] <= 0:
+        raise AssertionError("the string query launched no K2")
+    names = c_name.dictionary.values
+    starts = np.array([v.startswith("Customer#0000") for v in names])
+    codes = c_name.data.cpu().numpy()
+    keep = c_name.mask().cpu().numpy() & starts[codes] & \
+        (cs.SHIPMODES[mode.data.cpu().numpy()] == "AIR")
+    lengths = torch.cat([b["name_length"].data for b in out.batches])
+    modes = np.concatenate([b["mode"].to_numpy() for b in out.batches])
+    want_len = np.array([len(v) for v in names])[codes[keep]]
+    if not (out.num_rows == int(keep.sum()) and np.array_equal(
+            lengths.cpu().numpy(), want_len) and bool(np.all(modes == "air"))):
+        raise AssertionError("the string query differs from numpy")
+    walls = []
+    for _ in range(3):
+        _, ms = _wall_ms(run_query)
+        walls.append(ms)
+    print(f"string query through query() over {STRING_BATCHES} batches: "
+          f"{int(keep.sum())} rows, equal to numpy; wall "
+          f"{statistics.median(walls):.3f} ms (median of 3; first "
+          f"{first_ms:.3f} ms); launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def phase_probe_device_times(device_calls, rows):
     """Device time per call of each probe, of its library call and of the
     empty kernel behind the same operator path, from torch.profiler's
@@ -1911,6 +2048,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tail_launches = phase_compute_tail(pt, dev, all_kernels)
     for kname, count in tail_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    string_launches = phase_strings(pt, dev, all_kernels)
+    for kname, count in string_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     phase_probe_device_times(probe_calls, probe_rows)
 

@@ -13,8 +13,11 @@ tests run; each file then waits only for its own. A worker imports the
 test module to compute; the results come back pickled (the JAX package's
 dictionary pools, which hold a lock, pickle as their values). Without a
 pool, or if a worker fails, a file's answers are computed in the test
-process, as before. An idle worker exits with the test process. This file
-holds no tests.
+process, as before. The waits share one deadline for the whole run
+(``DEADLINE_S`` from the pool's start): past it the workers are stopped
+and every file left computes its answers in the test process, so a
+stalled worker costs the run minutes once, not a wait per file. An idle
+worker exits with the test process. This file holds no tests.
 """
 
 import copyreg
@@ -22,7 +25,8 @@ import importlib
 import multiprocessing
 import os
 import sys
-from concurrent.futures import ProcessPoolExecutor
+import time
+from concurrent.futures import ProcessPoolExecutor, TimeoutError
 
 _jax_column = importlib.import_module("arrow1_tpu.column")
 copyreg.pickle(_jax_column.Dictionary,
@@ -32,11 +36,16 @@ copyreg.pickle(_jax_column.Dictionary,
 MODULES = ("test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
            "test_torch_join", "test_torch_pipeline", "test_torch_port_faults",
            "test_torch_query", "test_torch_registry_sweep",
-           "test_torch_tail")
+           "test_torch_strings", "test_torch_tail")
 # a few workers beside the test process: the answers of all files take
 # about a minute of one core
 WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))
+# one deadline for the whole run, counted from the pool's start: past it
+# no file waits for a worker (a stalled one is stopped), and the files
+# left compute their answers in the test process
+DEADLINE_S = 240.0
 _futures = {}
+_pool = {}
 
 
 def _answers(module_name: str) -> dict:
@@ -54,17 +63,36 @@ def start() -> None:
             WORKERS, mp_context=multiprocessing.get_context("spawn"))
         for name in names:
             _futures[name] = pool.submit(_answers, name)
+        _pool["pool"] = pool
+        _pool["deadline"] = time.monotonic() + DEADLINE_S
     except Exception:   # noqa: BLE001 (no worker: answers_of computes here)
         _futures.clear()
 
 
+def _stop_workers() -> None:
+    """Past the deadline: drop the queued work and stop the workers, so
+    that none holds the test process at its exit."""
+    pool = _pool.pop("pool", None)
+    if pool is None:
+        return
+    for future in _futures.values():
+        future.cancel()
+    for proc in list(getattr(pool, "_processes", {}).values()):
+        proc.terminate()
+    pool.shutdown(wait=False, cancel_futures=True)
+
+
 def answers_of(module_name: str) -> dict:
-    """``module_name``'s answers from its worker, or computed here."""
+    """``module_name``'s answers from its worker if they come before the
+    run's deadline, or computed here."""
     start()
     future = _futures.get(module_name)
-    if future is not None:
+    if future is not None and "pool" in _pool:
         try:
-            return future.result(timeout=900)
+            return future.result(
+                timeout=max(0.0, _pool["deadline"] - time.monotonic()))
+        except TimeoutError:
+            _stop_workers()
         except Exception:   # noqa: BLE001 (computed here instead)
             pass
     return _answers(module_name)

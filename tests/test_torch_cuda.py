@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-compiled pipeline, the eager group_by and the joins on the card against
-the same calls on the CPU.
+compiled pipeline, the eager group_by, the joins, the compute tail and
+the string functions on the card against the same calls on the CPU.
 
 These need an NVIDIA GPU and skip elsewhere. The file imports neither JAX
 nor the JAX package, so it also runs on a machine that has only torch:
@@ -13,6 +13,10 @@ import pytest
 import torch
 
 import arrow1_tpu_torch as pt
+from arrow1_tpu_torch.compute_strings import (CALLS as STRING_CALLS,
+                                              call as string_call, on_device,
+                                              same_result as string_same,
+                                              tpch_string_columns)
 from arrow1_tpu_torch.compute_tail import (CALLS as TAIL_CALLS,
                                            same_result, tail_columns)
 from arrow1_tpu_torch.errors import Invalid
@@ -858,3 +862,106 @@ def test_drop_null_launches_k2_on_card(cuda):
     assert compact.launches == before + 1
     assert torch.equal(out.data.cpu(), torch.from_numpy(
         np.arange(10_000)[np.arange(10_000) % 3 > 0]))
+
+
+# ---- strings and the repaired faults: the card against the CPU -----------
+
+STRING_ROWS = 50_000
+
+
+@pytest.fixture(scope="module")
+def string_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on "
+                    "the card")
+    cpu = tpch_string_columns(STRING_ROWS, "cpu", customers=5_000)
+    return on_device(cpu, "cuda", STRING_ROWS), cpu
+
+
+@pytest.mark.parametrize("name", sorted(STRING_CALLS))
+def test_strings_on_card_match_cpu(cuda, name, string_inputs):
+    """Each of the 73 string names on card tensors against the same call
+    on CPU tensors, exactly; its rows stay on the card."""
+    card, cpu = string_inputs
+    got = string_call(name, card)
+    first = got.columns[0] if isinstance(got, pt.RecordBatch) else got
+    assert first.data.is_cuda, name
+    assert string_same(got, string_call(name, cpu)) is None, name
+
+
+@pytest.mark.parametrize("op", ["equal", "not_equal", "less", "less_equal",
+                                "greater", "greater_equal"])
+def test_string_compares_on_card_match_cpu(cuda, op, string_inputs):
+    card, cpu = string_inputs
+    for args in (("s", "t"), ("s", "Customer#000001234"), ("t", "AIR"),
+                 ("t", "B")):
+        got = pt.call_function(op, [card.get(a, a) for a in args])
+        want = pt.call_function(op, [cpu.get(a, a) for a in args])
+        assert got.data.is_cuda
+        assert string_same(got, want) is None, (op, args)
+
+
+def test_device_transform_and_lut_stay_on_card(cuda, string_inputs):
+    """ascii_lower runs over the pool's byte matrix on the card and seeds
+    its result pool's matrix there; starts_with on that result builds
+    none and gathers its table by the codes on the card."""
+    card, cpu = string_inputs
+    low = pt.call_function("ascii_lower", [card["t"]])
+    assert low.data.is_cuda
+    seeded = dict(low.dictionary._byte_matrix)
+    assert [d.type for d in seeded] == ["cuda"]
+    hit = pt.call_function("starts_with", [low], pattern="ai")
+    assert list(low.dictionary._byte_matrix) == list(seeded)
+    assert hit.data.is_cuda and hit.dtype == pt.bool_
+    want = pt.call_function("starts_with", [
+        pt.call_function("ascii_lower", [cpu["t"]])], pattern="ai")
+    assert string_same(hit, want) is None
+
+
+def test_string_casts_on_card_match_cpu(cuda):
+    col = pt.interop.column_from_numpy(
+        np.array(["12", "-3", None, "0x10"] * 100, dtype=object),
+        device=cuda)
+    got = pt.ops.cast.cast(col, pt.int64)
+    assert got.data.is_cuda
+    assert got.to_pylist() == [12, -3, None, 16] * 100
+    nums = pt.interop.column_from_numpy(np.array([1.5, -0.0, 1e20] * 100),
+                                        device=cuda)
+    text = pt.ops.cast.cast(nums, pt.string)
+    assert text.data.is_cuda
+    assert text.to_pylist() == ["1.5", "-0", "1e+20"] * 100
+    with pytest.raises(Invalid):
+        pt.ops.cast.cast(pt.interop.column_from_numpy(
+            np.array(["1", "x"], dtype=object), device=cuda), pt.int64)
+
+
+def test_repaired_faults_on_card(cuda):
+    """The three faults of ROADMAP Queue 3 repaired with this slice, on
+    the card: a dictionary array ingests to CUDA and groups on the dense
+    path (one K3 launch), the dense mean is the exact sum's, and the
+    compiled group_by emits -0.0 for a group of -0.0 keys."""
+    import pyarrow as pa
+
+    rb = pa.record_batch({"k": pa.array(["a", "b", "a", None]
+                                        ).dictionary_encode(),
+                          "v": pa.array([1, 2, 3, 4])})
+    before = segment_sums.launches
+    out = pt.group_by(pt.interop.record_batch_from_arrow(rb, device=cuda),
+                      ["k"], [("v", "sum")])
+    assert segment_sums.launches == before + 1
+    assert out["k"].to_pylist() == ["a", "b", None]
+    assert out["v_sum"].to_pylist() == [4, 2, 4]
+    wide = pt.record_batch({"k": np.array([1, 1]),
+                            "v": np.array([2 ** 62, 2 ** 62 + 1])},
+                           device=cuda)
+    mean = pt.group_by(wide, ["k"], [("v", "mean"), ("v", "sum")])
+    assert mean["v_mean"].to_pylist() == [4.611686018427388e18]
+    assert mean["v_sum"].to_pylist() == [-(2 ** 63) + 1]
+    piped = pt.PipelineBuilder().group_by(["k"], [("v", "mean")]).compile()(
+        wide)
+    assert piped["v_mean"].to_pylist() == [4.611686018427388e18]
+    nz = pt.record_batch({"f": np.array([-0.0, 1.0, -0.0]),
+                          "v": np.array([1, 2, 3])}, device=cuda)
+    keys = pt.PipelineBuilder().group_by(["f"], [("v", "sum")]).compile()(
+        nz)["f"].data.cpu().numpy()
+    assert np.signbit(keys).tolist() == [True, False]

@@ -59,7 +59,12 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.ops.conditional\n"
             "import arrow1_tpu_torch.ops.set_lookup\n"
             "import arrow1_tpu_torch.ops.ree\n"
-            "assert len(arrow1_tpu_torch.list_functions()) == 173\n"
+            "import arrow1_tpu_torch.ops.strings\n"
+            "import arrow1_tpu_torch.ops.strings_device\n"
+            "import arrow1_tpu_torch.ops.strings_host\n"
+            "import arrow1_tpu_torch.ops.formatting\n"
+            "import arrow1_tpu_torch.compute_strings\n"
+            "assert len(arrow1_tpu_torch.list_functions()) == 246\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -16,7 +16,11 @@ pyarrow, held against both on inputs of a few rows:
   the compiled pipeline's grouped min/max, which must skip NaN as the
   eager path does. Held against pyarrow on the eager group_by (small and
   wide int64 keys), the hash_* entry points, the compiled pipeline and a
-  two-batch query() and acero group_by, in float64 and float32.
+  two-batch query() and acero group_by, in float64 and float32;
+- a pyarrow DictionaryArray through the three ingest functions (string
+  and numeric pools); the dense-path integer mean, and the compiled and
+  streaming ones, which divided the wrapped int64 sum; the compiled
+  group_by's key of a group of -0.0 rows, which came out as 0.0.
 
 Integers, bools, validity and the sign of zero must match exactly. Where
 the JAX package and pyarrow disagree, pyarrow decides, and the test says
@@ -37,6 +41,7 @@ from arrow1_tpu.exec.compiled import PipelineBuilder as JaxPipelineBuilder
 import arrow1_tpu_torch as pt
 import arrow1_tpu_torch.acero as acero
 from arrow1_tpu_torch.errors import Invalid
+from arrow1_tpu_torch.exec.streaming import StreamingGroupBy
 from test_torch_answers import answers_of
 
 UNSIGNED = ["uint16", "uint32", "uint64"]
@@ -105,6 +110,15 @@ FLOAT_JAX_HASH_MIN_MAX = [(INF, -INF) if g == 5 else
                            FLOAT_WANT["v_max"][g - 1]) for g in range(1, 10)]
 
 STRING_KEY = ["b", "a", None, "c", "a", "b"]
+# dictionary-encoded keys (pyarrow DictionaryArrays) and the group sums
+# of v = [1, 2, 3, 4] pyarrow gives over them
+DICT_KEYS = {"string": ["a", "b", "a", None], "int": [10, 20, 10, None],
+             "float": [1.5, 2.5, 1.5, None]}
+# k = [1, 1], v = [2^62, 2^62 + 1]: the int64 sum wraps to -(2^63 - 1);
+# the mean is of the exact sum, 2^62 + 0.5
+WIDE_MEAN = 4.611686018427388e18
+NEG_ZERO = pa.record_batch({"f": pa.array([-0.0, 1.0, -0.0]),
+                            "v": pa.array([1, 2, 3])})
 U64_SORT = [(1 << 63) + 5, 3, None, (1 << 64) - 1]
 
 
@@ -142,6 +156,22 @@ def reference_answers():
         JaxPipelineBuilder().group_by(["k"], FLOAT_AGGS).compile()(fb))
     jobs["float_hash_min_max"] = lambda: a1t.call_function(
         "hash_min_max", [fb["v"], fb["g"]]).to_pylist()
+    for label, values in DICT_KEYS.items():
+        jobs["dict", label] = lambda values=values: sorted(
+            a1t.interop.record_batch_to_arrow(a1t.group_by(
+                a1t.record_batch(_dict_batch(values)), ["k"],
+                [("v", "sum")])).to_pylist(), key=repr)
+    wide = a1t.record_batch(_wide_mean_batch())
+    jobs["wide_mean"] = lambda: a1t.interop.record_batch_to_arrow(
+        a1t.group_by(wide, ["k"], [("v", "mean"), ("v", "sum")])
+    ).to_pydict()
+    jobs["wide_mean_pipeline"] = lambda: a1t.interop.record_batch_to_arrow(
+        JaxPipelineBuilder().group_by(["k"], [("v", "mean")]).compile()(
+            wide)).to_pydict()
+    nz = a1t.record_batch(NEG_ZERO)
+    jobs["neg_zero"] = lambda: a1t.interop.record_batch_to_arrow(
+        JaxPipelineBuilder().group_by(["f"], [("v", "sum")]).compile()(
+            nz)).to_pydict()
     with ThreadPoolExecutor(8) as ex:
         futures = {key: ex.submit(job) for key, job in jobs.items()}
         return {key: f.result() for key, f in futures.items()}
@@ -269,6 +299,89 @@ def test_sort_indices_of_uint64(jax_results):
                             pt.ops.sort.ArraySortOptions("descending"))
     assert desc.to_pylist() == pc.array_sort_indices(
         arr, order="descending").to_pylist() == [3, 0, 1, 2]
+
+
+def _dict_batch(values):
+    return pa.record_batch({"k": pa.array(values).dictionary_encode(),
+                            "v": pa.array([1, 2, 3, 4])})
+
+
+def _wide_mean_batch():
+    return pa.record_batch({"k": pa.array([1, 1]),
+                            "v": pa.array([2 ** 62, 2 ** 62 + 1])})
+
+
+def _sorted_rows(rb):
+    return sorted(rb.to_pylist(), key=repr)
+
+
+@pytest.mark.parametrize("label", list(DICT_KEYS))
+def test_dictionary_arrays_ingest(label, jax_results):
+    """A pyarrow DictionaryArray ingests through all three interop entry
+    points (a ChunkedArray of two dictionary chunks too) as a column of
+    its value type, and groups as pyarrow groups it. The JAX package
+    keeps a numeric pool's codes as the values (its groups come out as 0
+    and 1): pyarrow decides (ROADMAP Queue 3)."""
+    rb = _dict_batch(DICT_KEYS[label])
+    want = _sorted_rows(pa.table(rb).group_by("k").aggregate(
+        [("v", "sum")]).select(["v_sum", "k"]))
+    col = pt.interop.column_from_arrow(rb.column(0), device="cpu")
+    assert col.to_pylist() == DICT_KEYS[label]
+    batch = pt.interop.record_batch_from_arrow(rb, device="cpu")
+    got = _sorted_rows(pt.interop.record_batch_to_arrow(
+        pt.group_by(batch, ["k"], [("v", "sum")])))
+    assert got == want
+    assert (jax_results["dict", label] == want) == (label == "string")
+    table = pa.Table.from_batches([rb, _dict_batch(DICT_KEYS[label][::-1])])
+    assert pt.interop.table_to_arrow(pt.interop.table_from_arrow(
+        table, device="cpu")).column("k").to_pylist() == \
+        table.column("k").cast(table.schema.field("k").type.value_type
+                               ).to_pylist()
+    chunked = pt.interop.column_from_arrow(table.column("k"), device="cpu")
+    assert chunked.to_pylist() == DICT_KEYS[label] + DICT_KEYS[label][::-1]
+
+
+def test_dense_integer_mean_is_of_the_exact_sum(jax_results):
+    """The dense path (K3's plain version here), the compiled pipeline and
+    StreamingGroupBy: the int64 sum wraps as pyarrow's does, the mean is
+    the exact sum's. The JAX package's eager group_by takes its sorted
+    path on the CPU and agrees; its compiled pipeline divides the wrapped
+    sum (-4.61e18): pyarrow decides."""
+    rb = _wide_mean_batch()
+    want = pa.table(rb).group_by("k").aggregate([("v", "mean"),
+                                                 ("v", "sum")])
+    assert want.column("v_mean").to_pylist() == [WIDE_MEAN]
+    b = pt.record_batch(rb, device="cpu")
+    eager = pt.interop.record_batch_to_arrow(
+        pt.group_by(b, ["k"], [("v", "mean"), ("v", "sum")])).to_pydict()
+    assert eager["v_mean"] == [WIDE_MEAN] == jax_results["wide_mean"][
+        "v_mean"]
+    assert eager["v_sum"] == want.column("v_sum").to_pylist() == \
+        jax_results["wide_mean"]["v_sum"]
+    compiled = pt.interop.record_batch_to_arrow(
+        pt.PipelineBuilder().group_by(["k"], [("v", "mean")]).compile()(b))
+    assert compiled.column("v_mean").to_pylist() == [WIDE_MEAN]
+    assert jax_results["wide_mean_pipeline"]["v_mean"] == [-WIDE_MEAN]
+    stream = StreamingGroupBy(["k"], [("v", "mean"), ("v", "sum")])
+    stream.consume(b)
+    stream.consume(b)
+    out = pt.interop.record_batch_to_arrow(stream.finalize()).to_pydict()
+    assert out["v_mean"] == [WIDE_MEAN]
+    assert out["v_sum"] == [2]   # 2 * (2^63 + 1) mod 2^64, as pyarrow's
+
+
+def test_compiled_group_by_emits_the_first_rows_key(jax_results):
+    """The compiled group_by ties -0.0 with 0.0 (matched behaviour) and
+    emits the group's first row's key: -0.0 here, as the JAX package and
+    pyarrow do."""
+    b = pt.record_batch(NEG_ZERO, device="cpu")
+    got = pt.interop.record_batch_to_arrow(
+        pt.PipelineBuilder().group_by(["f"], [("v", "sum")]).compile()(b))
+    want = pa.table(NEG_ZERO).group_by("f").aggregate([("v", "sum")])
+    for out in (got.to_pydict(), jax_results["neg_zero"],
+                want.to_pydict()):
+        assert out["v_sum"] == [4, 2]
+        assert [np.copysign(1.0, f) for f in out["f"]] == [-1.0, 1.0]
 
 
 def _float_batch(ty, keys):

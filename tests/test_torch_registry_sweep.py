@@ -47,7 +47,7 @@ from arrow1_tpu.errors import A1TError as JError
 from arrow1_tpu.registry import function_registry as jax_registry
 
 import arrow1_tpu_torch as pt
-from arrow1_tpu_torch.errors import A1TError, NotImplementedError_
+from arrow1_tpu_torch.errors import A1TError
 from arrow1_tpu_torch.registry import function_registry as port_registry
 from test_torch_answers import answers_of
 
@@ -56,11 +56,6 @@ ULPS = 4
 # differ from libm's (torch's, pyarrow's) by about 100 ulps, and ndtri by
 # up to 5
 ULP_BOUNDS = {"sinh": 256, "cosh": 256, "rank_normal": 16}
-# later slices of the port (ROADMAP Queue 1 item 6): the port raises
-# NotImplementedError_ for these
-LATER_SLICES = {(op, "str") for op in ("equal", "not_equal", "less",
-                                       "less_equal", "greater",
-                                       "greater_equal")}
 NAN = float("nan")
 COLUMNS = {
     "i64": pa.array([3, None, -5, 7, 0], pa.int64()),
@@ -310,8 +305,23 @@ def _sweep_names():
     return [n for n in _shared_names() if n != "random"]
 
 
+def with_byte_matrices(inputs: dict) -> dict:
+    """The JAX package caches a pool's byte matrix on its Dictionary when
+    a string kernel first needs it; built inside a trace, that array
+    would leak into the next program. So the inputs' matrices are built
+    here, outside any trace."""
+    from arrow1_tpu.ops.strings_device import byte_matrix
+
+    for col in inputs.values():
+        if getattr(col, "dictionary", None) is not None and \
+                len(col.dictionary):
+            byte_matrix(col.dictionary)
+    return inputs
+
+
 def _reference_inputs():
-    return {key: a1t.column(arr) for key, arr in COLUMNS.items()}
+    return with_byte_matrices({key: a1t.column(arr)
+                               for key, arr in COLUMNS.items()})
 
 
 def reference_answers() -> dict:
@@ -388,7 +398,7 @@ def _port(name, key, arity):
 def test_the_sweep_covers_every_shared_name():
     assert len(_EARLIER_SLICES) == 74
     assert set(_EARLIER_SLICES) <= set(pt.list_functions())
-    assert len(pt.list_functions()) == 173
+    assert len(pt.list_functions()) == 246   # 173 + 73 string names
     assert set(pt.list_functions()) <= set(a1t.list_functions())
 
 
@@ -399,9 +409,6 @@ def test_port_matches_the_reference(name, jax_results):
     for key in COLUMNS:
         label = (name, key)
         got = _port(name, key, arity)
-        if label in LATER_SLICES:
-            assert got is NotImplementedError_, (label, got)
-            continue
         want = jax_results.get(label, None)
         if want is None:   # untraceable, earlier slice: pyarrow decides
             want = _pyarrow(name, key, arity)
