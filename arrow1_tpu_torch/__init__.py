@@ -12,7 +12,9 @@ eight types) and ``join_asof``, the small sorted-build probe
 registry functions, the numeric compute tail (validity, selection,
 numeric cast, the sort tail, element-wise min/max, power/abs/sign,
 bitwise, math, cumulative, conditional, set lookup, run ends, random),
-a pyarrow.compute-shaped facade (``compute``), and
+the strings, the temporal and interval types with the 42 temporal
+functions (a time zone's offsets looked up on the column's device) and
+``tdigest``, a pyarrow.compute-shaped facade (``compute``), and
 the query layer: ``Table`` (a sequence of batches), the streaming
 ``ExecPlan`` (``exec``), pyarrow.acero-shaped ``Declaration``s
 (``acero``), ``query()`` and the TPC-H and BASELINE templates
@@ -24,9 +26,11 @@ the kernels of the JAX package's remaining Pallas entry points.
 from . import acero, dtypes
 from .column import Column, Dictionary
 from .datum import Scalar, scalar
-from .dtypes import (DataType, binary, bool_, float16, float32, float64,
-                     int8, int16, int32, int64, large_binary, large_string,
-                     string, uint8, uint16, uint32, uint64)
+from .dtypes import (DataType, binary, bool_, date32, date64, duration,
+                     float16, float32, float64, int8, int16, int32, int64,
+                     large_binary, large_string, month_day_nano_interval,
+                     string, time32, time64, timestamp, uint8, uint16,
+                     uint32, uint64)
 from .device import resolve_device
 from .exec.compiled import CompiledPipeline, PipelineBuilder
 from .expr import Expression, call, field, literal
@@ -44,7 +48,9 @@ from .table import (ChunkedColumn, RecordBatch, Table, concat_batches,
 __all__ = ["acero", "dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
            "binary", "bool_", "float16", "float32", "float64", "int8",
            "int16", "int32", "int64", "large_binary", "large_string",
-           "string", "uint8", "uint16", "uint32", "uint64", "resolve_device",
+           "string", "uint8", "uint16", "uint32", "uint64", "date32",
+           "date64", "timestamp", "time32", "time64", "duration",
+           "month_day_nano_interval", "resolve_device",
            "CompiledPipeline", "PipelineBuilder", "Expression", "call",
            "field", "literal", "from_reference_arrays",
            "filter_project_flagship", "broadcast_probe", "group_by",

@@ -4,7 +4,10 @@ arrow1_tpu/column.py).
 - ``data``: a 1-D fixed-width tensor. For string/binary columns it holds
   int32 dictionary codes and the values live host-side in a ``Dictionary``.
 - ``validity``: a bool tensor, or None when every slot is valid.
-- ``data2``: a second limb for wide types (decimals, a later slice).
+- ``data2``: a second tensor for wide types: a month_day_nano_interval's
+  nanoseconds (its ``data`` packs months << 32 | days), later a
+  decimal's high limb. Slices, gathers, filters and concatenations carry
+  it.
 
 The JAX package also carries ``bits``, an int64 view of f64 data taken at
 ingest, because its TPU could not bit-cast f64 on the device. Hopper moves

@@ -40,6 +40,10 @@ class Scalar:
             return self.dictionary.values[int(v)]
         if isinstance(v, torch.Tensor):
             v = v.item()
+        if self.dtype.is_temporal:   # a date, datetime, time or timedelta
+            import pyarrow as pa
+
+            return pa.scalar(int(v), type=dt.to_arrow(self.dtype)).as_py()
         return bool(v) if self.dtype.is_boolean else v
 
     def __repr__(self):
@@ -48,7 +52,9 @@ class Scalar:
 
 
 def scalar(value, type: Optional[dt.DataType] = None) -> Scalar:
-    """Build a Scalar with arrow-style type inference."""
+    """Build a Scalar with arrow-style type inference. A temporal scalar
+    is its storage integer with its type, ``scalar(10471, date32)``: as in
+    the JAX package, a Python date or datetime is not taken."""
     if isinstance(value, Scalar):
         return value
     if value is None:

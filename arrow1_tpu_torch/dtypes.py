@@ -1,10 +1,15 @@
 """Logical types and their torch physical storage (counterpart of
-arrow1_tpu/dtypes.py, fixed-width numeric and bool types only).
+arrow1_tpu/dtypes.py: the numeric, bool, string, temporal and interval
+types).
 
 Every column is one fixed-width tensor. Strings and binaries are
 dictionary-encoded at ingest and travel as int32 codes; their values stay
-on the host. Validity is an unpacked bool tensor. Temporal, decimal and
-nested types come with later slices of the port and raise
+on the host. Temporal types are their storage integers with a unit tag
+(and a time zone for a timestamp): int32 for date32, time32 and
+month_interval, int64 for the rest; a month_day_nano_interval packs
+(months << 32 | days) into its data and carries nanoseconds in the
+column's ``data2``. Validity is an unpacked bool tensor. Decimal and
+nested types come with ROADMAP Queue 1 items 8-9 and raise
 ``NotImplementedError_`` here.
 """
 
@@ -21,6 +26,8 @@ from .errors import NotImplementedError_
 __all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
            "uint16", "uint32", "uint64", "float16", "float32", "float64",
            "string", "large_string", "binary", "large_binary", "dictionary",
+           "date32", "date64", "timestamp", "time32", "time64", "duration",
+           "month_interval", "day_time_interval", "month_day_nano_interval",
            "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
            "from_int64"]
 
@@ -39,24 +46,38 @@ _PHYS = {
     "float64": torch.float64,
 }
 _DICT_KINDS = ("string", "large_string", "binary", "large_binary")
-_LATER = "is not ported yet: temporal, decimal and nested types come with " \
-    "ROADMAP Queue 1 items 7-9"
+_TEMPORAL_KINDS = ("date32", "date64", "timestamp", "time32", "time64",
+                   "duration")
+_INTERVAL_KINDS = ("month_interval", "day_time_interval",
+                   "month_day_nano_interval")
+_INT32_KINDS = ("date32", "time32", "month_interval")
+_UNITS = {"timestamp": ("s", "ms", "us", "ns"), "time32": ("s", "ms"),
+          "time64": ("us", "ns"), "duration": ("s", "ms", "us", "ns")}
+_LATER = "is not ported yet: decimal and nested types come with " \
+    "ROADMAP Queue 1 items 8-9"
 
 
 @dataclasses.dataclass(frozen=True)
 class DataType:
     """A logical column type, identified by its ``kind``; a
     ``dictionary`` type (the result of dictionary_encode) also names its
-    index and value types."""
+    index and value types, a timestamp, time or duration its ``unit``
+    ("s", "ms", "us" or "ns") and a timestamp its time zone ``tz``."""
 
     kind: str
     index_type: Optional["DataType"] = None
     value_type: Optional["DataType"] = None
+    unit: Optional[str] = None
+    tz: Optional[str] = None
 
     def __post_init__(self):
         if self.kind not in _PHYS and self.kind not in _DICT_KINDS and \
+                self.kind not in _TEMPORAL_KINDS and \
+                self.kind not in _INTERVAL_KINDS and \
                 self.kind != "dictionary":
             raise NotImplementedError_(f"type {self.kind!r} {_LATER}")
+        if self.kind in _UNITS and self.unit not in _UNITS[self.kind]:
+            raise ValueError(f"{self.kind}: bad unit {self.unit!r}")
 
     @property
     def is_boolean(self) -> bool:
@@ -83,6 +104,15 @@ class DataType:
         return self.is_integer or self.is_floating
 
     @property
+    def is_temporal(self) -> bool:
+        """Dates, times, timestamps and durations (not the intervals)."""
+        return self.kind in _TEMPORAL_KINDS
+
+    @property
+    def is_interval(self) -> bool:
+        return self.kind in _INTERVAL_KINDS
+
+    @property
     def is_binary(self) -> bool:
         """Dictionary-encoded string or binary."""
         return self.kind in _DICT_KINDS
@@ -97,17 +127,27 @@ class DataType:
         dictionary-encoded strings, the index type's for dictionaries)."""
         if self.is_dictionary:
             return self.index_type.physical_dtype()
+        if self.is_temporal or self.is_interval:
+            return torch.int32 if self.kind in _INT32_KINDS else torch.int64
         return _PHYS.get(self.kind, torch.int32)
 
     def numpy_dtype(self) -> np.dtype:
         """The numpy dtype of the host copy of ``physical_dtype()``."""
         if self.is_dictionary:
             return self.index_type.numpy_dtype()
+        if self.is_temporal or self.is_interval:
+            return np.dtype(np.int32 if self.kind in _INT32_KINDS
+                            else np.int64)
         return np.dtype(self.kind if self.kind in _PHYS else np.int32)
 
     def __repr__(self) -> str:
         if self.is_dictionary:
             return f"dictionary<{self.value_type!r}, {self.index_type!r}>"
+        if self.kind == "timestamp":
+            return f"timestamp[{self.unit}]" + \
+                (f", tz={self.tz}" if self.tz else "")
+        if self.unit is not None:
+            return f"{self.kind}[{self.unit}]"
         return self.kind
 
 
@@ -127,6 +167,36 @@ string = DataType("string")
 large_string = DataType("large_string")
 binary = DataType("binary")
 large_binary = DataType("large_binary")
+date32 = DataType("date32")
+date64 = DataType("date64")
+
+
+def timestamp(unit: str = "us", tz: Optional[str] = None) -> DataType:
+    return DataType("timestamp", unit=unit, tz=tz)
+
+
+def time32(unit: str = "s") -> DataType:
+    return DataType("time32", unit=unit)
+
+
+def time64(unit: str = "us") -> DataType:
+    return DataType("time64", unit=unit)
+
+
+def duration(unit: str = "us") -> DataType:
+    return DataType("duration", unit=unit)
+
+
+def month_interval() -> DataType:
+    return DataType("month_interval")
+
+
+def day_time_interval() -> DataType:
+    return DataType("day_time_interval")
+
+
+def month_day_nano_interval() -> DataType:
+    return DataType("month_day_nano_interval")
 
 
 def dictionary(index_type: DataType, value_type: DataType) -> DataType:
@@ -161,6 +231,22 @@ def from_arrow(pa_type) -> DataType:
     for kind in _DICT_KINDS:
         if pa_type == getattr(pa, kind)():
             return DataType(kind)
+    if pa.types.is_date32(pa_type):
+        return date32
+    if pa.types.is_date64(pa_type):
+        return date64
+    if pa.types.is_timestamp(pa_type):
+        return timestamp(pa_type.unit, pa_type.tz)
+    if pa.types.is_time32(pa_type):
+        return time32(pa_type.unit)
+    if pa.types.is_time64(pa_type):
+        return time64(pa_type.unit)
+    if pa.types.is_duration(pa_type):
+        return duration(pa_type.unit)
+    if pa_type == pa.month_day_nano_interval():
+        return month_day_nano_interval()
+    if str(pa_type) in ("month_interval", "day_time_interval"):
+        return DataType(str(pa_type))   # no Python constructor in pyarrow
     raise NotImplementedError_(f"arrow type {pa_type} {_LATER}")
 
 
@@ -169,6 +255,14 @@ def to_arrow(t: DataType):
 
     if t.is_dictionary:
         return pa.dictionary(to_arrow(t.index_type), to_arrow(t.value_type))
+    if t.kind == "timestamp":
+        return pa.timestamp(t.unit, t.tz)
+    if t.kind in _UNITS:
+        return getattr(pa, t.kind)(t.unit)
+    if t.kind in ("month_interval", "day_time_interval"):
+        # pyarrow has no Python constructor for these two (nor has the
+        # JAX package's export)
+        raise TypeError(f"pyarrow exposes no Python {t.kind} type")
     return getattr(pa, "bool_" if t.kind == "bool" else t.kind)()
 
 

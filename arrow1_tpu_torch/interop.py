@@ -105,6 +105,17 @@ def column_from_arrow(arr, device=None) -> Column:
                       validity=None if valid is None
                       else _to_device(valid, device),
                       dictionary=Dictionary(pool))
+    if t.kind == "month_day_nano_interval":
+        return _from_month_day_nano(arr, t, valid, device)
+    if t.is_temporal:
+        # the storage integers through a zero-copy view, nulls as 0
+        storage = arr.view(pa.int32() if t.numpy_dtype().itemsize == 4
+                           else pa.int64())
+        data = np.asarray(storage.fill_null(0).to_numpy(
+            zero_copy_only=False)).astype(t.numpy_dtype(), copy=False)
+        return Column(_to_device(data, device), t,
+                      validity=None if valid is None
+                      else _to_device(valid, device))
     if arr.null_count:
         arr = arr.fill_null(False if t.is_boolean else 0)
     data = np.asarray(arr.to_numpy(zero_copy_only=False)).astype(
@@ -112,6 +123,27 @@ def column_from_arrow(arr, device=None) -> Column:
     return Column(_to_device(data, device), t,
                   validity=None if valid is None
                   else _to_device(valid, device))
+
+
+_MDN = np.dtype([("m", "<i4"), ("d", "<i4"), ("n", "<i8")])
+
+
+def _from_month_day_nano(arr, t: dt.DataType, valid, device) -> Column:
+    """A month_day_nano_interval array's 16-byte entries (months i32,
+    days i32, nanoseconds i64): months << 32 | days into ``data``,
+    nanoseconds into ``data2``, as the JAX package packs them."""
+    rec = np.frombuffer(arr.buffers()[1], dtype=_MDN,
+                        count=len(arr) + arr.offset)[arr.offset:]
+    data = (rec["m"].astype(np.int64) << 32) | \
+        (rec["d"].astype(np.int64) & 0xFFFFFFFF)
+    nanos = rec["n"].copy()
+    if valid is not None:   # null slots read 0
+        data[~valid] = 0
+        nanos[~valid] = 0
+    return Column(_to_device(data, device), t,
+                  validity=None if valid is None
+                  else _to_device(valid, device),
+                  data2=_to_device(nanos, device))
 
 
 def _from_dictionary_array(arr, t: dt.DataType, device) -> Column:
@@ -169,6 +201,18 @@ def column_to_arrow(col: Column):
                      mask=mask),
             pa.array(col.dictionary.values.tolist(),
                      type=dt.to_arrow(t.value_type)))
+    if col.dtype.kind == "month_day_nano_interval":
+        n = col.length
+        packed = col.data.cpu().numpy()
+        rec = np.empty(n, dtype=_MDN)
+        rec["m"] = (packed >> 32).astype(np.int32)
+        rec["d"] = (packed & 0xFFFFFFFF).astype(np.uint32).astype(np.int32)
+        rec["n"] = col.data2.cpu().numpy()
+        bufs = [None, pa.py_buffer(rec.tobytes())]
+        if mask is not None:
+            bufs[0] = pa.py_buffer(
+                np.packbits(~mask, bitorder="little").tobytes())
+        return pa.Array.from_buffers(dt.to_arrow(col.dtype), n, bufs)
     return pa.array(col.data.cpu().numpy(), type=dt.to_arrow(col.dtype),
                     mask=mask)
 

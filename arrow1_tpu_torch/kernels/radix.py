@@ -93,7 +93,7 @@ def minimal_sort_keys(col: Column, order: str = "ascending",
     elif t.is_unsigned_integer:
         kbits = 8 * col.data.element_size()
         key = as_int64(col.data)   # uint64: its bits are its unsigned key
-    elif t.is_signed_integer:
+    elif t.is_signed_integer or t.is_temporal:   # signed storage
         kbits = 8 * col.data.element_size()
         if kbits >= 64:
             key = col.data ^ _SIGN
@@ -213,7 +213,7 @@ def decode_packed_key(col: Column, vals: Sequence[torch.Tensor],
         v = _flip_desc(v, kbits)
     if t.is_boolean:
         return v != 0, validity
-    if t.is_signed_integer:
+    if t.is_signed_integer or t.is_temporal:
         v = v ^ _SIGN if kbits >= 64 else v - (1 << (kbits - 1))
     elif col.data.dtype != torch.uint8:
         return from_int64(v, col.data.dtype), validity

@@ -3,4 +3,4 @@
 from . import (aggregate, arithmetic, bitwise, boolean, cast,  # noqa: F401
                compare, conditional, cumulative, dictionary, groupby, hash,
                join, math, ree, selection, set_lookup, sort, strings,
-               validity)
+               temporal, validity)

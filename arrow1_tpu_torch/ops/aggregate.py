@@ -33,8 +33,8 @@ from ..table import RecordBatch
 from .common import as_int64, minmax_domain, value_of
 
 __all__ = ["ScalarAggregateOptions", "CountOptions", "VarianceOptions",
-           "ModeOptions", "QuantileOptions", "IndexOptions", "SkewOptions",
-           "WinsorizeOptions"]
+           "ModeOptions", "QuantileOptions", "TDigestOptions", "IndexOptions",
+           "SkewOptions", "WinsorizeOptions"]
 
 
 @dataclasses.dataclass
@@ -78,6 +78,21 @@ class QuantileOptions:
     interpolation: str = "linear"  # linear|lower|higher|nearest|midpoint
     skip_nulls: bool = True
     min_count: int = 0
+
+    def __post_init__(self):
+        if isinstance(self.q, (int, float)):
+            self.q = (float(self.q),)
+
+
+@dataclasses.dataclass
+class TDigestOptions:
+    """Reference: api_aggregate.h:160. ``delta`` and ``buffer_size`` are
+    kept for the signature: the quantiles are exact (one sort), which a
+    t-digest approximates."""
+
+    q: Sequence[float] = (0.5,)
+    delta: int = 100
+    buffer_size: int = 500
 
     def __post_init__(self):
         if isinstance(self.q, (int, float)):
@@ -397,6 +412,25 @@ def _quantile_exec(args, options: QuantileOptions, ctx):
 
 
 register_function("quantile", "aggregate", 1, QuantileOptions)(_quantile_exec)
+
+
+def _tdigest_exec(args, options: TDigestOptions, ctx):
+    """The exact linear-interpolated quantiles, float64 (reference
+    ``_tdigest_exec``). With no valid value each quantile is null, as in
+    pyarrow (the JAX package gives an empty column: ROADMAP Queue 3)."""
+    (col,) = args
+    col = _drop_nan(col)
+    options = options or TDigestOptions()
+    if _valid_count(col) == 0:
+        k = len(options.q)
+        return Column(torch.zeros(k, dtype=torch.float64, device=col.device),
+                      dt.float64, validity=torch.zeros(
+                          k, dtype=torch.bool, device=col.device))
+    return Column(torch.stack(_quantile_values(col, options.q, "linear")),
+                  dt.float64)
+
+
+register_function("tdigest", "aggregate", 1, TDigestOptions)(_tdigest_exec)
 
 
 def _mode_exec(args, options: ModeOptions, ctx):

@@ -1,6 +1,7 @@
 """Scalar arithmetic: add/subtract/multiply/divide/negate/power/abs and
 their ``_checked`` variants, and sign (counterpart of
-arrow1_tpu/ops/arithmetic.py, numeric types only).
+arrow1_tpu/ops/arithmetic.py: numeric types, and the temporal matrix of
+``_temporal_arith``).
 
 Integer ops wrap (two's complement); integer division truncates toward
 zero as in C and Arrow. The checked variants reduce an overflow flag on
@@ -117,10 +118,99 @@ def _mul_overflow(x, y, r, t):
     return bad | (safe & (_div(r, y_safe, t) != x))
 
 
+_UNIT_RANK = {"s": 0, "ms": 1, "us": 2, "ns": 3}
+_UNIT_MULT = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+
+
+def _temporal_parts(a, x):
+    """(int64 storage in a unit that scales, the unit, the kind): kind
+    is "instant" (timestamp, date), "time" (time of day), "dur" or
+    "num"."""
+    t = a.dtype
+    if not t.is_temporal:
+        return x, None, "num"
+    k = t.kind
+    if k == "date32":
+        return x.to(torch.int64) * 86400, "s", "instant"
+    if k == "date64":
+        return x.to(torch.int64), "ms", "instant"
+    kind = {"timestamp": "instant", "time32": "time", "time64": "time",
+            "duration": "dur"}[k]
+    return x.to(torch.int64), t.unit, kind
+
+
+def _temporal_arith(name, args):
+    """The temporal arithmetic matrix (reference: scalar_arithmetic.cc
+    timestamp and duration kernels):
+    add:      dur+dur->dur, instant+dur->timestamp, time+dur->time
+    subtract: instant-instant->dur, time-time->dur, dur-dur->dur,
+              instant-dur->timestamp, time-dur->time
+    multiply: dur*int->dur
+    divide:   dur/dur->float64, dur/int->dur (truncated)
+    Mixed units promote to the finer one. A timestamp result keeps its
+    instant's time zone, as pyarrow's does (the JAX package drops it)."""
+    a, b = args
+    (x, y), validities, n = unpack(args)
+    xa, ua, ka = _temporal_parts(a, x)
+    yb, ub, kb = _temporal_parts(b, y)
+    validity = intersect_validity(validities)
+    cu = max((u for u in (ua, ub) if u), key=lambda u: _UNIT_RANK[u])
+    if ua:
+        xa = xa * (_UNIT_MULT[cu] // _UNIT_MULT[ua])
+    if ub:
+        yb = yb * (_UNIT_MULT[cu] // _UNIT_MULT[ub])
+
+    def time_t(unit):
+        return dt.time32(unit) if unit in ("s", "ms") else dt.time64(unit)
+
+    tz = next((c.dtype.tz for c in args if c.dtype.kind == "timestamp"),
+              None)
+
+    def out(v, t):
+        return result_column(v.to(t.physical_dtype()), t, validity, n)
+
+    pair = (ka, kb)
+    if name == "add":
+        if pair == ("dur", "dur"):
+            return out(xa + yb, dt.duration(cu))
+        if "dur" in pair and "instant" in pair:
+            return out(xa + yb, dt.timestamp(cu, tz))
+        if "dur" in pair and "time" in pair:
+            return out(xa + yb, time_t(cu))
+    elif name == "subtract":
+        if ka == kb and ka in ("instant", "time", "dur"):
+            return out(xa - yb, dt.duration(cu))
+        if pair == ("instant", "dur"):
+            return out(xa - yb, dt.timestamp(cu, tz))
+        if pair == ("time", "dur"):
+            return out(xa - yb, time_t(cu))
+    elif name == "multiply":
+        if "dur" in pair and "num" in pair:
+            num, other = (yb, xa) if ka == "dur" else (xa, yb)
+            if num.is_floating_point():
+                raise Invalid(f"{name}: a duration times a float")
+            return out(other * as_int64(num), dt.duration(cu))
+    elif name == "divide":
+        if pair == ("dur", "dur"):
+            dev = column_device(args)
+            return result_column(xa.to(dev).to(torch.float64)
+                                 / yb.to(dev).to(torch.float64),
+                                 dt.float64, validity, n)
+        if pair == ("dur", "num") and not y.is_floating_point():
+            d = as_int64(y)
+            _raise_if(d == 0, "divide by zero", validity)
+            return out(torch.div(xa, torch.where(d == 0, 1, d),
+                                 rounding_mode="trunc"), dt.duration(cu))
+    raise Invalid(f"{name}: unsupported temporal combination "
+                  f"{a.dtype} / {b.dtype}")
+
+
 def _binary_arith(name, op, overflow_fn):
     def exec_fn(args, options, ctx):
         if any(a.dtype.is_binary for a in args):
             raise Invalid(f"{name}: non-numeric inputs")
+        if any(a.dtype.is_temporal for a in args):
+            return _temporal_arith(name.replace("_checked", ""), args)
         out_t = common_type(args)
         _check_numeric(name, args, out_t)
         (x, y), validities, n = unpack(args, out_t)
@@ -152,6 +242,8 @@ for _base, _op, _ovf in (("add", torch.add, _add_overflow),
 
 def _divide_exec(checked):
     def exec_fn(args, options, ctx):
+        if any(a.dtype.is_temporal for a in args):
+            return _temporal_arith("divide", args)
         out_t = common_type(args)
         _check_numeric("divide", args, out_t)
         (x, y), validities, n = unpack(args, out_t)

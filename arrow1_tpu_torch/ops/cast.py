@@ -1,18 +1,21 @@
-"""Casts (counterpart of arrow1_tpu/ops/cast.py, all but its temporal and
-decimal parts).
+"""Casts (counterpart of arrow1_tpu/ops/cast.py, all but its decimal
+part).
 
 Covered: int, uint, float and bool between each other, an explicit
-dictionary column to its values, numeric and bool to string (each
-distinct value formatted once on the host, ops/formatting.py), string to
-numeric and bool (the pool parsed on the host, gathered by the codes on
-the device; a value that does not parse raises only where a live row
-holds it) and string to string and binary. ``CastOptions`` keeps the
+dictionary column to its values, numeric, bool and temporal to string
+(each distinct value formatted once on the host, ops/formatting.py),
+string to numeric, bool and temporal (the pool parsed on the host,
+gathered by the codes on the device; a value that does not parse raises
+only where a live row holds it), string to string and binary, integer to
+temporal and back (the storage integers), and temporal to temporal with
+the unit rescaled (``_cast_temporal``). ``CastOptions`` keeps the
 reference's safety toggles (cast.h:44): a safe cast raises on integer
-overflow, on a float to integer cast that would drop a fraction, and on
-NaN or inf into an integer, each from a device flag reduced on the host
-(one sync), as the checked arithmetic does. Temporal and decimal types
-are not types of the port yet: a cast to one raises
-``NotImplementedError_`` (ROADMAP Queue 1 items 7 and 8).
+overflow, on a float to integer cast that would drop a fraction, on NaN
+or inf into an integer, and on a temporal cast to a coarser unit that
+would drop ticks (``allow_time_truncate``), each from a device flag
+reduced on the host (one sync), as the checked arithmetic does. Decimal
+types are not types of the port yet: a cast to one raises
+``NotImplementedError_`` (ROADMAP Queue 1 item 8).
 
 uint16, uint32 and uint64 move through int64 (``dtypes.as_int64``): torch
 converts and compares little in them. An unsafe float to integer cast of
@@ -38,10 +41,12 @@ from .arithmetic import _raise_if
 from .common import as_int64, from_int64, result_column, unpack
 from .strings import with_pool
 
-__all__ = ["CastOptions", "cast", "convert", "int_range"]
+__all__ = ["CastOptions", "cast", "convert", "int_range",
+           "temporal_to_common"]
 
-_LATER = ("casts from or to temporal and decimal types are not ported yet "
-          "(ROADMAP Queue 1 items 7-8)")
+_LATER = ("casts from or to decimal types are not ported yet "
+          "(ROADMAP Queue 1 item 8)")
+_UNIT_NS = {"s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "ns": 1}
 
 
 @dataclasses.dataclass
@@ -66,6 +71,29 @@ class CastOptions:
                    allow_time_truncate=True, allow_time_overflow=True,
                    allow_decimal_truncate=True, allow_float_truncate=True,
                    allow_invalid_utf8=True)
+
+
+def temporal_unit_ns(t: dt.DataType) -> int:
+    """Nanoseconds in one storage tick of a temporal type."""
+    if t.kind == "date32":
+        return 86_400 * _UNIT_NS["s"]
+    if t.kind == "date64":
+        return _UNIT_NS["ms"]
+    return _UNIT_NS[t.unit]
+
+
+def temporal_to_common(a, b):
+    """The int64 storage of two temporal arguments in the finer unit."""
+    from .common import value_of
+
+    na, nb = temporal_unit_ns(a.dtype), temporal_unit_ns(b.dtype)
+    x = value_of(a).to(torch.int64)
+    y = value_of(b).to(torch.int64)
+    if na > nb:
+        x = x * (na // nb)
+    elif nb > na:
+        y = y * (nb // na)
+    return x, y
 
 
 def int_range(t: dt.DataType):
@@ -213,6 +241,9 @@ def _parse_string_uniques(values, dst: dt.DataType):
     elif dst.is_boolean:
         table = [attempt(lambda v=v: F.parse_bool(v), i, False)
                  for i, v in enumerate(vals)]
+    elif dst.is_temporal:
+        table = [attempt(lambda v=v: F.parse_temporal(v, dst), i, 0)
+                 for i, v in enumerate(vals)]
     else:
         raise Invalid(f"unsupported cast string -> {dst}")
     return np.array(table, dst.numpy_dtype()), ok, err[0]
@@ -227,6 +258,9 @@ def _format_to_strings(x: torch.Tensor, src: dt.DataType):
 
     if src.is_boolean:
         return np.array(["false", "true"], object), x.to(torch.int32)
+    if src.is_temporal:
+        uniq, inv = torch.unique(x.to(torch.int64), return_inverse=True)
+        return F.format_temporal_values(uniq, src), inv.to(torch.int32)
     if src.is_floating:
         if x.dtype == torch.float16:
             x = x.to(torch.float32)
@@ -311,8 +345,52 @@ def _cast_exec(args, options: CastOptions, ctx):
         return with_pool(codes, dst, validity, strs)
     if dst.is_dictionary:
         raise Invalid(f"unsupported cast {src} -> {dst}")
+    if src.is_temporal or dst.is_temporal:
+        return result_column(_cast_temporal(x, src, dst, options, validity),
+                             dst, validity, n)
     return result_column(_cast_numeric(x, src, dst, options, validity),
                          dst, validity, n)
+
+
+def _cast_temporal(x, src, dst, options: CastOptions, validity):
+    """Integers to temporal storage and back (the storage integers), and
+    temporal to temporal with the unit rescaled: to a finer unit by a
+    product, to a coarser one by a division truncated toward zero, as
+    pyarrow's (the JAX package floors: ROADMAP Queue 3), which a safe cast
+    refuses where it drops ticks. A timestamp to a date or a time gives
+    its calendar day (floored) or its time of day, in local time when it
+    has a zone, as pyarrow's cast does (the JAX package rescales the
+    instant)."""
+    if src.is_numeric and dst.is_temporal:
+        return convert(x, src, dt.int64).to(dst.physical_dtype())
+    if src.is_temporal and dst.is_numeric:
+        return _cast_numeric(x, dt.int64, dst, options, validity)
+    if src.kind == "timestamp" and dst.kind in ("date32", "date64",
+                                                "time32", "time64"):
+        from .temporal import _wall
+
+        per_day = 86400 * 10**9 // _UNIT_NS[src.unit]
+        wall = _wall(Column(x, src))
+        days = torch.div(wall, per_day, rounding_mode="floor")
+        if dst.kind == "date32":
+            return days.to(torch.int32)
+        if dst.kind == "date64":
+            return days * 86_400_000
+        x, src = wall - days * per_day, dt.time64(src.unit) \
+            if src.unit in ("us", "ns") else dt.time32(src.unit)
+    if src.is_temporal and dst.is_temporal:
+        ns_src, ns_dst = temporal_unit_ns(src), temporal_unit_ns(dst)
+        v = x.to(torch.int64)
+        if ns_src >= ns_dst:
+            r = v * (ns_src // ns_dst)
+        else:
+            f = ns_dst // ns_src
+            if not options.allow_time_truncate:
+                _raise_if(v % f != 0, f"casting {src} -> {dst} would lose "
+                          "data", validity)
+            r = torch.div(v, f, rounding_mode="trunc")
+        return r.to(dst.physical_dtype())
+    raise Invalid(f"unsupported temporal cast {src} -> {dst}")
 
 
 register_function("cast", "scalar", 1, CastOptions)(_cast_exec)

@@ -1,9 +1,12 @@
 """Comparison kernels: equal/not_equal/greater/greater_equal/less/less_equal
 and min_element_wise/max_element_wise (counterpart of
-arrow1_tpu/ops/compare.py; numeric, bool and dictionary strings). Inputs promote to a common type; compare
+arrow1_tpu/ops/compare.py; numeric, bool, temporal and dictionary
+strings). Inputs promote to a common type; compare
 outputs are bool with intersection nulls. uint16, uint32 and uint64
 compare in int64 (``minmax_domain``): torch has no order compare for
-them. Dictionary strings compare their codes (equality) or ranks (order)
+them. Temporal values compare their storage integers, rescaled to the
+finer unit where the units differ (a date32 against a timestamp).
+Dictionary strings compare their codes (equality) or ranks (order)
 on the column's device; only the pool's rank table is made on the host.
 
 The element-wise min and max follow pyarrow where the reference does not
@@ -24,6 +27,7 @@ from ..column import Column
 from ..datum import Scalar
 from ..errors import Invalid
 from ..registry import register_function
+from .cast import temporal_to_common
 from .common import (broadcast_length, column_device, common_type,
                      intersect_validity, minmax_domain, result_column,
                      unpack)
@@ -107,6 +111,16 @@ def _compare_exec(name):
                 raise Invalid(f"{name}: cannot compare string with "
                               "non-string")
             x, y, validities, n = _string_operands(name, args)
+            return result_column(op(x, y), dt.bool_,
+                                 intersect_validity(validities), n)
+        if any(a.dtype.is_temporal for a in args):
+            # storage integers, rescaled to the finer unit if they differ
+            if not all(a.dtype.is_temporal for a in args):
+                raise Invalid(f"{name}: cannot compare {args[0].dtype} "
+                              f"with {args[1].dtype}")
+            (x, y), validities, n = unpack(args)
+            if args[0].dtype != args[1].dtype:
+                x, y = temporal_to_common(*args)
             return result_column(op(x, y), dt.bool_,
                                  intersect_validity(validities), n)
         (x, y), validities, n = unpack(args, common_type(args))

@@ -193,12 +193,14 @@ for _n in ("cumulative_sum", "cumulative_sum_checked", "cumulative_prod",
 def _pairwise_diff(checked):
     def exec_fn(args, options: PairwiseOptions, ctx):
         """x[i] - x[i - period]; null where either is null or i - period
-        is out of range (reference: vector_pairwise.cc)."""
+        is out of range (reference: vector_pairwise.cc). A temporal
+        column gives durations: date32 duration[s] (its days scaled),
+        date64 duration[ms], the others a duration of their unit."""
         (a,) = args
         options = options or PairwiseOptions()
         p = int(options.period)
         t = a.dtype
-        if not t.is_numeric:
+        if not t.is_numeric and not t.is_temporal:
             raise Invalid("pairwise_diff: expects numeric")
         n = a.length
         dev = a.device
@@ -208,15 +210,20 @@ def _pairwise_diff(checked):
         valid = in_range
         if a.validity is not None:
             valid = valid & a.validity & a.validity[src_c]
+        x64 = None if t.is_floating else as_int64(a.data)
+        if t.is_temporal:
+            if t.kind == "date32":
+                x64, t = x64 * 86400, dt.duration("s")
+            else:
+                t = dt.duration("ms" if t.kind == "date64" else t.unit)
         if t.is_floating:
             r = a.data - a.data[src_c]
         else:
-            x64 = as_int64(a.data)
             y64 = x64[src_c]
             r64 = x64 - y64
             if checked:
                 bad = _sub_overflow(x64, y64, r64, t) if t.kind in (
-                    "int64", "uint64") else _sum_overflow(
+                    "int64", "uint64", "duration") else _sum_overflow(
                         x64, -y64, r64, t)
                 _raise_if(bad, "pairwise_diff_checked: overflow", valid)
             r = _wrap(r64, t)

@@ -10,8 +10,13 @@ integer, float and bool parsers of scalar_cast_string.cc).
 Both directions run on the host over the unique values of a column:
 string columns are dictionary-encoded, so a numeric -> string cast
 lands in dictionary form and a string -> numeric cast reads the pool;
-the device moves only codes and the per-value table. The temporal and
-decimal forms come with ROADMAP Queue 1 items 7 and 8.
+the device moves only codes and the per-value table. Temporal values
+format as the reference's cast to string does (ISO 8601: a date
+YYYY-MM-DD, a time hh:mm:ss with the unit's fraction, a timestamp the
+two with a space, a zoned one with its offset +hhmm; a duration its
+integer) and parse from ISO 8601 (value_parsing.h
+ParseTimestampISO8601). The decimal forms come with ROADMAP Queue 1
+item 8.
 """
 
 from __future__ import annotations
@@ -65,6 +70,61 @@ def format_float(v, f32: bool = False) -> str:
     return f"{sign}{mant}e{'+' if e >= 0 else '-'}{abs(e)}"
 
 
+def format_temporal(secs: int, rem: int, digits: int, kind: str) -> str:
+    """A date ("date": ``secs`` counts days), time of day ("time") or
+    timestamp ("ts") as ISO text, ``rem`` the fraction in ``digits``
+    digits."""
+    from datetime import datetime, timezone
+
+    frac = f".{rem:0{digits}d}" if digits else ""
+    if kind == "date":
+        return datetime.fromtimestamp(
+            secs * 86400, tz=timezone.utc).strftime("%Y-%m-%d")
+    if kind == "time":
+        h, r = divmod(secs, 3600)
+        m, s = divmod(r, 60)
+        return f"{h:02d}:{m:02d}:{s:02d}{frac}"
+    d = datetime.fromtimestamp(secs, tz=timezone.utc)
+    return d.strftime("%Y-%m-%d %H:%M:%S") + frac
+
+
+_PER_S = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+_DIGITS = {"s": 0, "ms": 3, "us": 6, "ns": 9}
+
+
+def format_temporal_values(uniq, src) -> np.ndarray:
+    """The strings of distinct temporal storage values ``uniq`` (an
+    int64 tensor, any device) of type ``src``, as an object array."""
+    vals = uniq.cpu().numpy()
+    kind = src.kind
+    if kind == "duration":
+        return np.array([str(int(v)) for v in vals], object)
+    if kind in ("date32", "date64"):
+        days = vals if kind == "date32" else vals // 86400000
+        return np.array([format_temporal(int(v), 0, 0, "date")
+                         for v in days], object)
+    per, digits = _PER_S[src.unit], _DIGITS[src.unit]
+    if kind in ("time32", "time64"):
+        return np.array([format_temporal(*divmod(int(v), per), digits,
+                                         "time") for v in vals], object)
+    offs = np.zeros(len(vals), np.int64)
+    suffix = [""] * len(vals)
+    if src.tz:   # local time and its offset
+        from ..utils.tzif import load_tz
+
+        tz = load_tz(src.tz)
+        secs = np.floor_divide(vals, per)
+        offs = tz.utoff[np.searchsorted(tz.trans, secs, side="right")] \
+            if len(tz.trans) else np.full(len(vals), int(tz.utoff[0]))
+        for i, o in enumerate(offs.tolist()):
+            hh, mm = divmod(abs(o) // 60, 60)
+            suffix[i] = f"{'+' if o >= 0 else '-'}{hh:02d}{mm:02d}"
+    return np.array([format_temporal(*divmod(int(v) + int(o) * per, per),
+                                     digits, "ts") + sfx
+                     for v, o, sfx in zip(vals.tolist(), offs.tolist(),
+                                          suffix)], object)
+
+
 # ---------------------------------------------------------------------
 # parsing (string -> numeric); reference util/value_parsing.h
 # ---------------------------------------------------------------------
@@ -104,6 +164,45 @@ def parse_float(s: str) -> float:
         raise Invalid(f"Failed to parse string: {s!r} as a scalar of "
                       "type double")
     return float(s)  # overflow -> inf, like the reference's parser
+
+
+def parse_temporal(s: str, dst) -> int:
+    """ISO 8601 text -> ``dst``'s storage ticks (value_parsing.h
+    ParseTimestampISO8601); a value that the unit cannot hold exactly
+    raises."""
+    import datetime as _dt
+
+    if dst.kind in ("date32", "date64"):
+        days = _dt.date.fromisoformat(s).toordinal() - 719163
+        return days if dst.kind == "date32" else days * 86400000
+    ns_per = {"s": 10**9, "ms": 10**6, "us": 10**3, "ns": 1}
+    if dst.kind in ("time32", "time64"):
+        t = _dt.time.fromisoformat(s)
+        ns = ((t.hour * 3600 + t.minute * 60 + t.second) * 10**9
+              + t.microsecond * 1000)
+        per = ns_per[dst.unit]
+        if ns % per:
+            raise Invalid(f"time value {s!r} loses precision at {dst.unit}")
+        return ns // per
+    if dst.kind == "timestamp":
+        if dst.tz:
+            raise Invalid("cast string -> tz-aware timestamp is not "
+                          "supported; cast to naive then assume_timezone")
+        body, _, frac = s.replace("T", " ").partition(".")
+        body = body.strip()
+        if " " in body:
+            d = _dt.datetime.fromisoformat(body)
+        else:
+            dd = _dt.date.fromisoformat(body)
+            d = _dt.datetime(dd.year, dd.month, dd.day)
+        secs = (d.toordinal() - 719163) * 86400 + d.hour * 3600 + \
+            d.minute * 60 + d.second
+        total_ns = secs * 10**9 + (int((frac + "0" * 9)[:9]) if frac else 0)
+        per = ns_per[dst.unit]
+        if total_ns % per:
+            raise Invalid(f"timestamp {s!r} loses precision at {dst.unit}")
+        return total_ns // per
+    raise Invalid(f"unsupported cast string -> {dst}")
 
 
 def parse_bool(s: str) -> bool:

@@ -62,7 +62,9 @@ def gather_batch(batch: RecordBatch, idx: torch.Tensor,
         return RecordBatch(tuple(
             Column(torch.zeros(idx.shape[0], dtype=c.data.dtype,
                                device=idx.device), c.dtype, validity=null,
-                   dictionary=c.dictionary)
+                   dictionary=c.dictionary,
+                   data2=None if c.data2 is None else torch.zeros(
+                       idx.shape[0], dtype=c.data2.dtype, device=idx.device))
             for c in batch.columns), batch.names)
     return RecordBatch(tuple(take_column(c, idx, extra_validity)
                              for c in batch.columns), batch.names)
@@ -118,16 +120,18 @@ def _filter_exec(args, options: FilterOptions, ctx):
     n = values.num_rows if isinstance(values, RecordBatch) else values.length
     if n != mask.length:
         raise Invalid(f"filter: length mismatch {n} vs {mask.length}")
-    if any(c.data2 is not None for c in cols):
-        raise Invalid("filter: two-limb columns are not ported yet")
     if options is None:
         options = FilterOptions()
     selected, mask_validity = _effective_mask(
         mask, options.null_selection_behavior)
-    streams, layout = [], []   # layout: (column index, "data"|"validity")
+    # layout: (column index, "data" | "data2" | "validity")
+    streams, layout = [], []
     for i, c in enumerate(cols):
         streams.append(c.data)
         layout.append((i, "data"))
+        if c.data2 is not None:   # an interval's nanoseconds
+            streams.append(c.data2)
+            layout.append((i, "data2"))
         if c.validity is not None:
             streams.append(c.validity)
             layout.append((i, "validity"))
@@ -136,9 +140,10 @@ def _filter_exec(args, options: FilterOptions, ctx):
         layout.append((-1, "validity"))
     outs, count = compact(selected, streams)
     count = int(count)   # the one host sync: it sizes the result
-    data, valid = {}, {}
+    moved = {"data": {}, "data2": {}, "validity": {}}
     for (ci, kind), out in zip(layout, outs):
-        (data if kind == "data" else valid)[ci] = out[:count]
+        moved[kind][ci] = out[:count]
+    data, valid = moved["data"], moved["validity"]
     out_cols = []
     for i, c in enumerate(cols):
         validity = valid.get(i)
@@ -146,7 +151,8 @@ def _filter_exec(args, options: FilterOptions, ctx):
             validity = valid[-1] if validity is None else \
                 (validity & valid[-1])
         out_cols.append(Column(data[i], c.dtype, validity=validity,
-                               dictionary=c.dictionary))
+                               dictionary=c.dictionary,
+                               data2=moved["data2"].get(i)))
     if isinstance(values, RecordBatch):
         return RecordBatch(tuple(out_cols), values.names)
     return out_cols[0]

@@ -5,12 +5,15 @@ Reference: cpp/src/arrow/compute/kernels/scalar_set_lookup.cc. The value
 set is small and known on the host, so, as in the reference, it becomes
 a sorted tensor of member keys that each row finds with one binary
 search (``torch.searchsorted``); no hash table. A dictionary-string
-column searches its codes. Keys are int64: uint64 with its sign bit
-flipped, so that signed order is unsigned order; floats as total-order
-bits, so that 0.0 and -0.0 are different members as in pyarrow (the
-reference finds them equal: ROADMAP Queue 3). A NaN member matches every
-NaN value. SetLookupOptions (api_scalar.h:94): skip_nulls=False lets a
-null value match a null member.
+column searches its codes, a temporal column its storage integers (a
+member given as a Python date, datetime or timedelta, or a pyarrow
+temporal value, converts through pyarrow to the column's storage). Keys
+are int64: uint64 with its sign bit flipped, so that signed order is
+unsigned order; floats as total-order bits, so that 0.0 and -0.0 are
+different members as in pyarrow (the reference finds them equal:
+ROADMAP Queue 3). A NaN member matches every NaN value.
+SetLookupOptions (api_scalar.h:94): skip_nulls=False lets a null value
+match a null member.
 """
 
 from __future__ import annotations
@@ -80,6 +83,10 @@ def _members(col: Column, value_set):
                                for i, v in enumerate(nonnull)],
                               dtype=torch.int64)
         x = col.data.to(torch.int64)
+    elif col.dtype.is_temporal:
+        member = torch.tensor([_temporal_storage(v, col.dtype)
+                               for v in nonnull], dtype=torch.int64)
+        x = col.data.to(torch.int64)
     else:
         member = _keys(torch.from_numpy(np.asarray(
             nonnull, dtype=col.dtype.numpy_dtype())))
@@ -87,6 +94,17 @@ def _members(col: Column, value_set):
     order = torch.sort(member, stable=True).indices
     pos = torch.tensor(positions, dtype=torch.int32)[order]
     return x, member[order].to(dev), pos.to(dev), has_null, nan_pos
+
+
+def _temporal_storage(v, t: dt.DataType) -> int:
+    """A value-set member as the storage integer of temporal type ``t``:
+    an integer as it is, anything else through pyarrow."""
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    import pyarrow as pa
+
+    storage = pa.int32() if t.numpy_dtype().itemsize == 4 else pa.int64()
+    return pa.array([v], type=dt.to_arrow(t)).view(storage)[0].as_py()
 
 
 def _lookup(col: Column, options: SetLookupOptions):

@@ -115,7 +115,7 @@ def normalize_sort_key(col: Column, order: str = "ascending"
         has_nan = True
     elif t.is_unsigned_integer or t.is_boolean:
         key = col.data.to(torch.int64)
-    elif t.is_signed_integer:
+    elif t.is_signed_integer or t.is_temporal:   # signed storage
         key = col.data.to(torch.int64) ^ _SIGN
     else:
         raise Invalid(f"sort: unsupported type {t}")

@@ -129,7 +129,20 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    (starts_with and ==) and projection (utf8_length, ascii_lower) over
    ten 2^20-row batches against numpy, whose K2 launches are counted and
    must be above 0;
-16. takes each probe's, its library call's and the empty kernel's device
+16. runs the temporal slice (arrow1_tpu_torch/compute_temporal.py: 43
+   names) once each on the card over TEMPORAL_ROWS-row columns from a
+   seed (date32 ship dates, timestamps over 1969-2030 plain and in
+   America/New_York, naive wall times, strftime/strptime over a pool of
+   TEMPORAL_DISTINCT instants), each timed and held against the same
+   call on CPU tensors over the first TEMPORAL_WINDOW rows, exactly; then
+   TPC-H Q1 at SF10 over phase 12's line items with the spec's ship-date
+   predicate on a date32 column (<= 1998-09-02), projecting
+   year(l_shipdate), grouped by l_returnflag (equal to the numpy oracle
+   and to the int-days template row for row) and by the year (equal to
+   numpy), whose K2 launches are counted and must be above 0; and
+   assume_timezone -> hour/is_dst/local_timestamp at TEMPORAL_ROWS with
+   the zone's offset table on the card;
+17. takes each probe's, its library call's and the empty kernel's device
    time per call from torch.profiler's kernel records (PROFILE_CALLS
    calls), last, because the profiler's CUDA tracing may stay attached to
    the process and slow the launches after it; every probe must show its
@@ -182,6 +195,10 @@ STRING_WINDOW = 1_000_000            # rows held against the CPU
 SF10_CUSTOMERS = 1_500_000           # c_name's distinct values at SF10
 SF1_CUSTOMERS = 150_000              # the host-routed names' pool (SF1)
 STRING_BATCHES = 10                  # the string query's 2^20-row batches
+TEMPORAL_ROWS = 10_000_000           # each temporal column's rows
+TEMPORAL_WINDOW = 1_000_000          # rows held against the CPU
+TEMPORAL_DISTINCT = 150_000          # strftime/strptime's pool (SF1-sized)
+Q1_CUTOFF = 10471   # 1998-09-02 = date '1998-12-01' - 90 days (TPC-H Q1)
 # HBM bandwidth from NVIDIA's data sheets, by device name (first match)
 PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H200", 4.8e12), ("H100", 3.35e12))
@@ -1590,6 +1607,160 @@ def phase_strings(pt, dev, counted):
     return launches
 
 
+def phase_temporal(pt, dev, counted, lt, want):
+    """The temporal slice on the card (phase 16). Part 1: each of its 43
+    names (``arrow1_tpu_torch.compute_temporal.CALLS``) once over
+    TEMPORAL_ROWS-row columns from a seed (date32 ship dates, timestamps
+    over 1969-2030, the same instants in America/New_York, naive wall
+    times, strftime/strptime over a pool of TEMPORAL_DISTINCT instants),
+    its wall time printed (median of 3 calls after a checked one: one
+    call's wall can read the allocator's growth), each map call's
+    output held against the same call on CPU tensors over the first
+    TEMPORAL_WINDOW rows, tdigest over the window on both, exactly. Part
+    2: TPC-H Q1 at SF10 on phase 12's line items with its spec predicate
+    on a date32 ship date (l_shipdate <= 1998-09-02), projecting
+    year(l_shipdate): grouped by l_returnflag it must equal the numpy
+    oracle and the int-days template row for row, grouped by the year the
+    numpy oracle; each query's K2 and K3 launches of one run are counted
+    (set to 0 before, read after), K2's must be above 0, and its wall
+    (median of 3) and peak device memory printed. Part 3:
+    assume_timezone -> hour, is_dst, local_timestamp at TEMPORAL_ROWS,
+    each against the CPU over the window, with the zone's offset table
+    on the card. Returns the launches."""
+    from arrow1_tpu_torch import compute_temporal as ct
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch import models
+    from arrow1_tpu_torch.utils import tzif
+
+    t_phase = time.perf_counter()
+    cols = ct.temporal_columns(TEMPORAL_ROWS, dev, distinct=TEMPORAL_DISTINCT)
+    window = ct.on_device(cols, "cpu", TEMPORAL_WINDOW)
+    window_card = ct.on_device(cols, dev, TEMPORAL_WINDOW)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    failures, times = [], {}
+    for label, (_, _, _, kind) in ct.CALLS.items():
+        out = ct.call(label, cols)
+        first = out.columns[0] if isinstance(out, pt.RecordBatch) else out
+        if first.data.device.type != "cuda":
+            failures.append(f"{label}: ran on {first.data.device}")
+            continue
+        times[label] = statistics.median(
+            _wall_ms(lambda: ct.call(label, cols))[1] for _ in range(3))
+        if kind == "map":
+            problem = ct.same_result(out, ct.call(label, window),
+                                     rows=TEMPORAL_WINDOW)
+        else:
+            problem = ct.same_result(ct.call(label, window_card),
+                                     ct.call(label, window))
+        if problem:
+            failures.append(f"{label}: {problem}")
+    if failures:
+        raise AssertionError("temporal: " + "; ".join(failures))
+    calls_s = time.perf_counter() - t_phase - build_s
+    names = {ct.CALLS[label][0] for label in times}
+    print(f"temporal: {len(names)} names in {len(times)} calls on the card "
+          f"at {TEMPORAL_ROWS} rows, each equal to the CPU over the first "
+          f"{TEMPORAL_WINDOW} rows (columns built in {build_s:.1f} s, calls "
+          f"and checks {calls_s:.1f} s); card wall ms (median of 3): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in times.items()), flush=True)
+
+    # part 2: Q1 at SF10 on a date32 ship date
+    t0 = time.perf_counter()
+    lt32 = pt.Table([b.set_column("l_shipdate", pt.Column(
+        b["l_shipdate_days"].data.to(torch.int32), dt.date32))
+        for b in lt.batches])
+    cutoff = pt.scalar(Q1_CUTOFF, dt.date32)
+
+    def q1(key, aggs):
+        return (pt.query(lt32)
+                .filter(pt.field("l_shipdate") <= cutoff)
+                .project([pt.field("l_returnflag"), pt.field("l_quantity"),
+                          pt.field("l_extendedprice"),
+                          pt.call("year", [pt.field("l_shipdate")])],
+                         ["l_returnflag", "l_quantity", "l_extendedprice",
+                          "l_year"])
+                .group_by([key], aggs)
+                .order_by([(key, "ascending")])
+                .to_batch())
+
+    queries = [
+        ("by l_returnflag", "q1_spec", lambda: q1(
+            "l_returnflag", [("l_quantity", "sum"),
+                             ("l_extendedprice", "sum"),
+                             ("l_quantity", "count")])),
+        ("by year(l_shipdate)", "q1_years", lambda: q1(
+            "l_year", [("l_quantity", "sum"), ("l_quantity", "count")]))]
+    template = models.q1_pricing_summary(lt, Q1_CUTOFF)
+    launches = {kern.__name__: 0 for kern in counted}
+    for label, oracle, run in queries:
+        run()   # warm-up (uncounted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in counted:
+            kern.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        mem = torch.cuda.max_memory_allocated()
+        run_launches = {kern.__name__: kern.launches for kern in counted}
+        for name, count in run_launches.items():
+            launches[name] += count
+        if run_launches["compact"] <= 0:
+            raise AssertionError(f"Q1 date32 {label}: the date filter "
+                                 "launched no K2")
+        _check_sf10(out, want[oracle], f"Q1 date32 {label}")
+        if oracle == "q1_spec":   # the int-days template, row for row
+            for name in template.names:
+                g, w = out[name].to_numpy(), template[name].to_numpy()
+                if g.dtype.kind == "f":
+                    g, w = g.view(np.int64), w.view(np.int64)
+                if g.tolist() != w.tolist():
+                    raise AssertionError(f"Q1 date32: {name} {g} differs "
+                                         f"from the int-days template {w}")
+        walls = [_wall_ms(run)[1] for _ in range(3)]
+        print(f"TPC-H SF10 Q1 on date32 l_shipdate <= 1998-09-02, "
+              f"{label}: {out.num_rows} groups, equal to the numpy oracle"
+              + (" and the int-days template" if oracle == "q1_spec" else "")
+              + f"; wall {statistics.median(walls):.3f} ms (median of 3), "
+              f"peak device memory {mem / 2**30:.2f} GiB; one run: K2 "
+              f"{run_launches['compact']}, K3 "
+              f"{run_launches['segment_sums']}", flush=True)
+        del out
+    del lt32, template
+    q1_s = time.perf_counter() - t0
+
+    # part 3: a time zone at full size, its offset table on the card
+    wall = cols["wall"]
+    opts = dict(timezone=ct.ZONE, ambiguous="earliest",
+                nonexistent="earliest")
+    z, z_ms = _wall_ms(lambda: pt.call_function("assume_timezone", [wall],
+                                                **opts))
+    zw = pt.call_function("assume_timezone", [window["wall"]], **opts)
+    problem = ct.same_result(z, zw, rows=TEMPORAL_WINDOW)
+    tz_ms = {"assume_timezone": z_ms}
+    for name in ("hour", "is_dst", "local_timestamp"):
+        out, tz_ms[name] = _wall_ms(lambda: pt.call_function(name, [z]))
+        problem = problem or ct.same_result(
+            out, pt.call_function(name, [zw]), rows=TEMPORAL_WINDOW)
+        if name == "local_timestamp":   # wall times back, but in a gap
+            moved = int(((out.data != wall.data) & wall.mask()).sum())
+    if problem:
+        raise AssertionError(f"temporal time zone: {problem}")
+    tables = list(tzif.load_tz(ct.ZONE).devices)
+    if not any(d.startswith("cuda") for d in tables):
+        raise AssertionError(f"the {ct.ZONE} offset table is not on the "
+                             f"card: {tables}")
+    print(f"temporal time zone {ct.ZONE} ({len(tzif.load_tz(ct.ZONE).trans)}"
+          f" transitions, on the card): assume_timezone -> hour, is_dst, "
+          f"local_timestamp at {TEMPORAL_ROWS} rows, each equal to the CPU "
+          f"over the first {TEMPORAL_WINDOW} rows; {moved} wall times in a "
+          f"DST gap moved; card wall ms (one call): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in tz_ms.items())
+          + f"; Q1 part {q1_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def phase_probe_device_times(device_calls, rows):
     """Device time per call of each probe, of its library call and of the
     empty kernel behind the same operator path, from torch.profiler's
@@ -1647,6 +1818,23 @@ def _sf10_oracles(li, orders, customers):
     order = np.argsort(-sums, kind="stable")[:10]
     out["q5"] = dict(l_extendedprice_sum=sums[order],
                      c_segment=seg_pool[order])
+    days = li["l_shipdate_days"]
+    keep = days <= Q1_CUTOFF
+    fl = flag_codes[keep]
+    out["q1_spec"] = dict(
+        l_quantity_sum=np.bincount(fl, weights=qty[keep], minlength=3)
+        .astype(np.int64),
+        l_extendedprice_sum=np.bincount(fl, weights=price[keep],
+                                        minlength=3),
+        l_quantity_count=np.bincount(fl, minlength=3),
+        l_returnflag=flag_pool)
+    year = days[keep].astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+    years, year_idx = np.unique(year, return_inverse=True)
+    out["q1_years"] = dict(
+        l_quantity_sum=np.bincount(year_idx, weights=qty[keep])
+        .astype(np.int64),
+        l_quantity_count=np.bincount(year_idx), l_year=years)
     disc = li["l_discount"]
     keep = (disc >= 0.02) & (disc <= 0.09) & (qty < 24)
     out["q6"] = dict(l_extendedprice_sum=np.bincount(
@@ -1695,7 +1883,8 @@ class _CallCounter:
 
 def phase_sf10(pt, dev, peak, counted):
     """The query layer at TPC-H SF10 cardinalities. Returns the launch
-    counts of the counted runs."""
+    counts of the counted runs, the lineitem Table (phase 16 reuses it)
+    and the numpy oracles."""
     import arrow1_tpu_torch.ops.join as ops_join
     import arrow1_tpu_torch.profile_main_path as pm
     from arrow1_tpu_torch import acero, models
@@ -1798,7 +1987,7 @@ def phase_sf10(pt, dev, peak, counted):
               f"run: K2 {run_launches['compact']}, K3 "
               f"{run_launches['segment_sums']}, hash-join calls "
               f"{counter.calls}", flush=True)
-    return launches
+    return launches, lt, want
 
 
 def _check_config3(out, inp):
@@ -2039,7 +2228,8 @@ def main() -> int:
           f"{probe_launches}", flush=True)
     launches.update(u64_launches)
     torch.cuda.empty_cache()
-    sf10_launches = phase_sf10(pt, dev, peak, all_kernels)
+    sf10_launches, sf10_lineitem, sf10_want = phase_sf10(pt, dev, peak,
+                                                         all_kernels)
     print(f"SF10 query layer launches: {sf10_launches}", flush=True)
     for kname, count in sf10_launches.items():
         launches[kname] = launches.get(kname, 0) + count
@@ -2053,6 +2243,14 @@ def main() -> int:
     string_launches = phase_strings(pt, dev, all_kernels)
     for kname, count in string_launches.items():
         launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    temporal_launches = phase_temporal(pt, dev, all_kernels, sf10_lineitem,
+                                       sf10_want)
+    print(f"temporal main path launches: {temporal_launches}", flush=True)
+    for kname, count in temporal_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    del sf10_lineitem
+    torch.cuda.empty_cache()
     phase_probe_device_times(probe_calls, probe_rows)
 
     result = {"kernels": [

@@ -36,7 +36,7 @@ copyreg.pickle(_jax_column.Dictionary,
 MODULES = ("test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
            "test_torch_join", "test_torch_pipeline", "test_torch_port_faults",
            "test_torch_query", "test_torch_registry_sweep",
-           "test_torch_strings", "test_torch_tail")
+           "test_torch_strings", "test_torch_tail", "test_torch_temporal")
 # a few workers beside the test process: the answers of all files take
 # about a minute of one core
 WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-compiled pipeline, the eager group_by, the joins, the compute tail and
-the string functions on the card against the same calls on the CPU.
+compiled pipeline, the eager group_by, the joins, the compute tail, the
+string functions and the temporal slice on the card against the same
+calls on the CPU.
 
 These need an NVIDIA GPU and skip elsewhere. The file imports neither JAX
 nor the JAX package, so it also runs on a machine that has only torch:
@@ -19,6 +20,7 @@ from arrow1_tpu_torch.compute_strings import (CALLS as STRING_CALLS,
                                               tpch_string_columns)
 from arrow1_tpu_torch.compute_tail import (CALLS as TAIL_CALLS,
                                            same_result, tail_columns)
+from arrow1_tpu_torch import compute_temporal
 from arrow1_tpu_torch.errors import Invalid
 from arrow1_tpu_torch.kernels.compaction import (compact, compact_plain,
                                                  compact_u64,
@@ -965,3 +967,71 @@ def test_repaired_faults_on_card(cuda):
     keys = pt.PipelineBuilder().group_by(["f"], [("v", "sum")]).compile()(
         nz)["f"].data.cpu().numpy()
     assert np.signbit(keys).tolist() == [True, False]
+
+
+# ---- the temporal slice: the card against the CPU ------------------------
+
+TEMPORAL_ROWS = 50_000
+
+
+@pytest.fixture(scope="module")
+def temporal_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only on "
+                    "the card")
+    cpu = compute_temporal.temporal_columns(TEMPORAL_ROWS, "cpu",
+                                            distinct=2_000)
+    return compute_temporal.on_device(cpu, "cuda", TEMPORAL_ROWS), cpu
+
+
+@pytest.mark.parametrize("label", list(compute_temporal.CALLS))
+def test_temporal_on_card_matches_cpu(cuda, label, temporal_inputs):
+    """Each call of the 43 temporal names (components, *_between, the
+    rounding, the time-zone lookup, strftime/strptime, tdigest) on card
+    tensors against the same call on the CPU, exactly."""
+    card, cpu = temporal_inputs
+    got = compute_temporal.call(label, card)
+    first = got.columns[0] if isinstance(got, pt.RecordBatch) else got
+    assert first.data.device.type == "cuda", label
+    assert compute_temporal.same_result(
+        got, compute_temporal.call(label, cpu)) is None, label
+
+
+def test_time_zone_lookup_on_card(cuda, temporal_inputs):
+    """The zone's offset table is copied to the card once and the per-row
+    lookup (searchsorted and a gather) runs there: is_dst, local time and
+    assume_timezone's way back equal the CPU's."""
+    from arrow1_tpu_torch.utils import tzif
+
+    card, cpu = temporal_inputs
+    for name in ("is_dst", "local_timestamp"):
+        got = pt.call_function(name, [card["tsz"]])
+        assert got.data.device.type == "cuda"
+        assert compute_temporal.same_result(
+            got, pt.call_function(name, [cpu["tsz"]])) is None, name
+    assert any(d.startswith("cuda")
+               for d in tzif.load_tz(compute_temporal.ZONE).devices)
+    opts = dict(timezone=compute_temporal.ZONE, ambiguous="latest",
+                nonexistent="latest")
+    back = pt.call_function("assume_timezone", [card["wall"]], **opts)
+    assert compute_temporal.same_result(back, pt.call_function(
+        "assume_timezone", [cpu["wall"]], **opts)) is None
+
+
+def test_date32_filter_launches_k2_on_card(cuda, temporal_inputs):
+    """A date32 predicate against a typed scalar filters a batch through
+    one K2 launch, and keeps the rows the CPU keeps."""
+    from arrow1_tpu_torch import dtypes
+
+    card, cpu = temporal_inputs
+    cutoff = pt.scalar(9500, dtypes.date32)
+    outs = []
+    for cols in (card, cpu):
+        rb = pt.RecordBatch((cols["d"], cols["ts"]), ("d", "ts"))
+        mask = pt.call_function("less_equal", [cols["d"], cutoff])
+        before = compact.launches
+        outs.append(pt.call_function("filter", [rb, mask]))
+        if cols is card:
+            assert compact.launches == before + 1
+    for g, w in zip(outs[0].columns, outs[1].columns):
+        assert compute_temporal.same_result(g, w) is None

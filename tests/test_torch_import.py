@@ -64,7 +64,10 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.ops.strings_host\n"
             "import arrow1_tpu_torch.ops.formatting\n"
             "import arrow1_tpu_torch.compute_strings\n"
-            "assert len(arrow1_tpu_torch.list_functions()) == 246\n"
+            "import arrow1_tpu_torch.ops.temporal\n"
+            "import arrow1_tpu_torch.utils.tzif\n"
+            "import arrow1_tpu_torch.compute_temporal\n"
+            "assert len(arrow1_tpu_torch.list_functions()) == 289\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -159,9 +162,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_later_slice_types_raise():
-    for kind in ("timestamp", "decimal128", "list"):
+    for kind in ("decimal128", "list", "struct"):
         with pytest.raises(NotImplementedError_):
             dt.DataType(kind)
+    with pytest.raises(NotImplementedError_):
+        dt.from_arrow(pa.decimal128(10, 2))
+    assert dt.timestamp("us", "UTC").physical_dtype() == torch.int64
+    assert dt.date32.physical_dtype() == torch.int32
     assert dt.from_numpy_dtype(np.float32) == dt.float32
     assert dt.int64.physical_dtype() == torch.int64
     assert dt.string.physical_dtype() == torch.int32

@@ -4,6 +4,10 @@ register, called with copies of each of seven small typed columns with
 nulls (i64, u8, u64, f32 and f64 with NaN and -0.0, bool, a dictionary
 string), as many as it takes arguments (two for a varargs function), one
 test case per name (``random``, which takes no column, has its own test).
+The 42 temporal names take a date32 and a timestamp[us] column (with the
+reference tests' edge dates) instead (strptime the string column); the two
+interval results pyarrow cannot hold in Python (month_interval,
+day_time_interval) are compared as their storage integers and masks.
 
 The port must give the JAX package's answer: the same arrow type, nulls
 and integers exactly, floats within ULPS units in the last place (the two
@@ -66,10 +70,30 @@ COLUMNS = {
     "bool": pa.array([True, None, False, True, False]),
     "str": pa.array(["b", None, "a", "b", ""]),
 }
+TEMPORAL_COLUMNS = {
+    "d32": pa.array([-165, None, 18321, 0, 18686], pa.date32()),
+    "ts": pa.array([-14182939876544, None, 1583020799999999,
+                    1615689000000000, 7], pa.timestamp("us")),
+}
+ALL_COLUMNS = {**COLUMNS, **TEMPORAL_COLUMNS}
+# the names of ops/temporal.py, swept over the temporal columns
+TEMPORAL_NAMES = frozenset((
+    "assume_timezone", "ceil_temporal", "day", "day_of_week", "day_of_year",
+    "day_time_interval_between", "days_between", "floor_temporal", "hour",
+    "hours_between", "is_dst", "is_leap_year", "iso_calendar", "iso_week",
+    "iso_year", "local_timestamp", "microsecond", "microseconds_between",
+    "millisecond", "milliseconds_between", "minute", "minutes_between",
+    "month", "month_day_nano_interval_between", "month_interval_between",
+    "nanosecond", "nanoseconds_between", "quarter", "quarters_between",
+    "round_temporal", "second", "seconds_between", "strftime", "strptime",
+    "subsecond", "us_week", "us_year", "week", "weeks_between", "year",
+    "year_month_day", "years_between"))
+# results pyarrow has no Python type for: storage integers and mask
+RAW_RESULTS = {"month_interval_between", "day_time_interval_between"}
 # struct-shaped results: the packages give RecordBatches of the same
 # fields, compared as such by the function's own tests
 STRUCT_RESULTS = {"min_max", "mode", "first_last", "value_counts",
-                  "run_end_encode"}
+                  "run_end_encode", "iso_calendar", "year_month_day"}
 # (name, column) -> why the JAX package's answer is wrong; pyarrow decides
 # (ROADMAP Queue 3)
 REFERENCE_FAULTS = {
@@ -305,6 +329,23 @@ def _sweep_names():
     return [n for n in _shared_names() if n != "random"]
 
 
+def _keys(name):
+    """The columns a name is swept over."""
+    if name == "strptime":
+        return ("str", "d32")
+    return ("d32", "ts") if name in TEMPORAL_NAMES else tuple(COLUMNS)
+
+
+def _storage(col):
+    """A column as its storage integers and mask (``RAW_RESULTS``)."""
+    return {"data": col.data, "valid": col.mask()}
+
+
+def _storage_lists(x):
+    return {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v).tolist()
+            for k, v in x.items()}
+
+
 def with_byte_matrices(inputs: dict) -> dict:
     """The JAX package caches a pool's byte matrix on its Dictionary when
     a string kernel first needs it; built inside a trace, that array
@@ -321,7 +362,7 @@ def with_byte_matrices(inputs: dict) -> dict:
 
 def _reference_inputs():
     return with_byte_matrices({key: a1t.column(arr)
-                               for key, arr in COLUMNS.items()})
+                               for key, arr in ALL_COLUMNS.items()})
 
 
 def reference_answers() -> dict:
@@ -331,18 +372,25 @@ def reference_answers() -> dict:
     sets = _reference_inputs()   # concrete value sets: read on the host
     for name in _sweep_names():
         arity = _arity(name)
-        for key in COLUMNS:
+        for key in _keys(name):
             if name.endswith("_meta_binary"):
                 calls[(name, key)] = (lambda inp, name=name, key=key:
                                       a1t.call_function(
                                           name, [inp[key], sets[key]]))
                 continue
+            if name in RAW_RESULTS:
+                calls[(name, key)] = (lambda inp, name=name, key=key, a=arity:
+                                      _storage(a1t.call_function(
+                                          name, [inp[key]] * a)))
+                continue
             calls[(name, key)] = (lambda inp, name=name, key=key, a=arity:
                                   a1t.call_function(name, [inp[key]] * a))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return arrow_answers(jax_answers(calls, _reference_inputs(),
-                                         eager=lambda k: k[0] in new_names))
+        answers = arrow_answers(jax_answers(
+            calls, _reference_inputs(), eager=lambda k: k[0] in new_names))
+    return {k: _storage_lists(v) if k[0] in RAW_RESULTS and
+            isinstance(v, dict) else v for k, v in answers.items()}
 
 
 @pytest.fixture(scope="module")
@@ -371,12 +419,12 @@ _EARLIER_SLICES = (
 
 
 def _port_column(key):
-    return pt.interop.column_from_arrow(COLUMNS[key], device="cpu")
+    return pt.interop.column_from_arrow(ALL_COLUMNS[key], device="cpu")
 
 
 def _pyarrow(name, key, arity):
     try:
-        return pc.call_function(name, [COLUMNS[key]] * arity)
+        return pc.call_function(name, [ALL_COLUMNS[key]] * arity)
     except Exception as e:   # noqa: BLE001
         return type(e)
 
@@ -389,7 +437,8 @@ def _rows(x):
 
 def _port(name, key, arity):
     try:
-        return pt.call_function(name, [_port_column(key)] * arity)
+        out = pt.call_function(name, [_port_column(key)] * arity)
+        return _storage_lists(_storage(out)) if name in RAW_RESULTS else out
     except (A1TError, TypeError, ValueError, IndexError, KeyError,
             OverflowError, NotImplementedError) as e:
         return type(e)
@@ -398,15 +447,28 @@ def _port(name, key, arity):
 def test_the_sweep_covers_every_shared_name():
     assert len(_EARLIER_SLICES) == 74
     assert set(_EARLIER_SLICES) <= set(pt.list_functions())
-    assert len(pt.list_functions()) == 246   # 173 + 73 string names
+    # 173 + 73 string names + 42 temporal names + tdigest
+    assert len(pt.list_functions()) == 289
+    assert {n for n in set(a1t.list_functions()) - set(pt.list_functions())
+            } == set(NESTED_SLICE)
+    assert TEMPORAL_NAMES <= set(pt.list_functions())
     assert set(pt.list_functions()) <= set(a1t.list_functions())
+
+
+# the 18 names of ROADMAP Queue 1 item 9 (nested types), not ported yet
+NESTED_SLICE = (
+    "list_element", "list_flatten", "list_parent_indices", "list_slice",
+    "list_value_length", "make_struct", "struct_field", "map_lookup",
+    "split_pattern", "split_pattern_regex", "ascii_split_whitespace",
+    "utf8_split_whitespace", "binary_join", "hash_list", "hash_distinct",
+    "hash_tdigest", "hash_pivot_wider", "pivot_wider")
 
 
 @pytest.mark.parametrize("name", _sweep_names())
 def test_port_matches_the_reference(name, jax_results):
     arity = _arity(name)
     compared = 0
-    for key in COLUMNS:
+    for key in _keys(name):
         label = (name, key)
         got = _port(name, key, arity)
         want = jax_results.get(label, None)
@@ -426,7 +488,9 @@ def test_port_matches_the_reference(name, jax_results):
             assert isinstance(got, type), (label, "should raise", got)
             continue
         assert not isinstance(got, type), (label, got, want)
-        if name in STRUCT_RESULTS:
+        if name in RAW_RESULTS:
+            assert got == want, (label, got, want)
+        elif name in STRUCT_RESULTS:
             got, want = (_rows(as_arrow(x)) for x in (got, want))
             assert same_value(got, want), (label, got, want)
         else:
@@ -434,4 +498,5 @@ def test_port_matches_the_reference(name, jax_results):
         compared += 1
     if name not in ("hash_one",):
         assert compared or all(
-            isinstance(_pyarrow(name, k, arity), type) for k in COLUMNS), name
+            isinstance(_pyarrow(name, k, arity), type)
+            for k in _keys(name)), name
