@@ -26,7 +26,8 @@ the kernels of the JAX package's remaining Pallas entry points.
 from . import acero, dtypes
 from .column import Column, Dictionary
 from .datum import Scalar, scalar
-from .dtypes import (DataType, binary, bool_, date32, date64, duration,
+from .dtypes import (DataType, binary, bool_, date32, date64, decimal128,
+                     decimal256, duration,
                      float16, float32, float64, int8, int16, int32, int64,
                      large_binary, large_string, month_day_nano_interval,
                      string, time32, time64, timestamp, uint8, uint16,
@@ -50,7 +51,8 @@ __all__ = ["acero", "dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataT
            "int16", "int32", "int64", "large_binary", "large_string",
            "string", "uint8", "uint16", "uint32", "uint64", "date32",
            "date64", "timestamp", "time32", "time64", "duration",
-           "month_day_nano_interval", "resolve_device",
+           "month_day_nano_interval", "decimal128", "decimal256",
+           "resolve_device",
            "CompiledPipeline", "PipelineBuilder", "Expression", "call",
            "field", "literal", "from_reference_arrays",
            "filter_project_flagship", "broadcast_probe", "group_by",

@@ -82,6 +82,12 @@ class AsofJoinNodeOptions(ExecNodeOptions):
 def _scalar_column(s: Scalar, device) -> Column:
     """A scalar aggregate's result as a one-row column (a null one when
     the scalar is null)."""
+    if s.dtype.is_decimal:
+        from .ops.decimal import decimal_planes
+
+        lo, hi = decimal_planes(s, s.dtype, 1, device)
+        return Column(lo, s.dtype, data2=hi, validity=None if s.is_valid
+                      else torch.zeros(1, dtype=torch.bool, device=device))
     phys = s.dtype.physical_dtype()
     if not s.is_valid:
         return Column(torch.zeros(1, dtype=phys, device=device), s.dtype,

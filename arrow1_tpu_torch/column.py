@@ -5,9 +5,10 @@ arrow1_tpu/column.py).
   int32 dictionary codes and the values live host-side in a ``Dictionary``.
 - ``validity``: a bool tensor, or None when every slot is valid.
 - ``data2``: a second tensor for wide types: a month_day_nano_interval's
-  nanoseconds (its ``data`` packs months << 32 | days), later a
-  decimal's high limb. Slices, gathers, filters and concatenations carry
-  it.
+  nanoseconds (its ``data`` packs months << 32 | days), a decimal128's
+  signed high limb (int64[n]; ``data`` is its low limb's bits) or a
+  decimal256's limbs 1-3 (int64[n, 3]). Slices, gathers, filters and
+  concatenations carry it.
 
 The JAX package also carries ``bits``, an int64 view of f64 data taken at
 ingest, because its TPU could not bit-cast f64 on the device. Hopper moves
@@ -82,6 +83,35 @@ class Dictionary:
         return f"Dictionary({len(self.values)} values)"
 
 
+def unscaled_ints(col: "Column") -> list:
+    """A decimal column's unscaled integers as Python ints (host copy):
+    the limbs, least significant first, the top one signed."""
+    lo = col.data.cpu().numpy().view(np.uint64).tolist()
+    hi = col.data2.cpu().numpy().reshape(col.length, -1)
+    upper = [r.tolist() for r in hi.view(np.uint64).T]
+    top = hi[:, -1].tolist()   # signed
+    out = []
+    for i, v in enumerate(lo):
+        for j, limb in enumerate(upper[:-1]):
+            v |= limb[i] << (64 * (j + 1))
+        out.append(v | (top[i] << (64 * len(upper))))
+    return out
+
+
+def decimal_values(col: "Column") -> np.ndarray:
+    """A decimal column as an object array of exact ``decimal.Decimal``
+    values (None at nulls)."""
+    from decimal import Context, Decimal
+
+    ctx = Context(prec=80)
+    out = np.full(col.length, None, dtype=object)
+    valid = col.mask().cpu().numpy()
+    for i, v in enumerate(unscaled_ints(col)):
+        if valid[i]:
+            out[i] = Decimal(v).scaleb(-col.dtype.scale, ctx)
+    return out
+
+
 class Column:
     """One typed device tensor plus optional validity (and dictionary)."""
 
@@ -138,6 +168,8 @@ class Column:
             keep = slice(None) if valid is None else valid
             out[keep] = self.dictionary.values[data[keep]]
             return out
+        if self.dtype.is_decimal:
+            return decimal_values(self)
         if valid is not None and self.dtype.is_floating:
             data = data.copy()
             data[~valid] = np.nan

@@ -112,7 +112,8 @@ def on_device(cols: dict, device) -> dict:
     """A copy of every column on ``device``."""
     return {name: c if not isinstance(c, Column) else Column(
         c.data.to(device), c.dtype, validity=None if c.validity is None
-        else c.validity.to(device), dictionary=c.dictionary)
+        else c.validity.to(device), dictionary=c.dictionary,
+        data2=None if c.data2 is None else c.data2.to(device))
         for name, c in cols.items()}
 
 

@@ -3,6 +3,7 @@ arrow1_tpu/datum.py)."""
 
 from __future__ import annotations
 
+import decimal
 from typing import Optional, Union
 
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 
 from . import dtypes as dt
 from .column import Column, Dictionary
+from .errors import Invalid
 from .table import RecordBatch
 
 __all__ = ["Scalar", "Datum", "scalar", "as_datum"]
@@ -40,6 +42,11 @@ class Scalar:
             return self.dictionary.values[int(v)]
         if isinstance(v, torch.Tensor):
             v = v.item()
+        if self.dtype.is_decimal:   # the unscaled integer, exactly
+            from decimal import Context, Decimal
+
+            return Decimal(int(v)).scaleb(-self.dtype.scale,
+                                          Context(prec=80))
         if self.dtype.is_temporal:   # a date, datetime, time or timedelta
             import pyarrow as pa
 
@@ -54,7 +61,9 @@ class Scalar:
 def scalar(value, type: Optional[dt.DataType] = None) -> Scalar:
     """Build a Scalar with arrow-style type inference. A temporal scalar
     is its storage integer with its type, ``scalar(10471, date32)``: as in
-    the JAX package, a Python date or datetime is not taken."""
+    the JAX package, a Python date or datetime is not taken. A decimal
+    scalar holds its unscaled integer; ``scalar(Decimal("0.05"))`` infers
+    pyarrow's type, decimal128(2, 2) (decimal256 past 38 digits)."""
     if isinstance(value, Scalar):
         return value
     if value is None:
@@ -69,7 +78,26 @@ def scalar(value, type: Optional[dt.DataType] = None) -> Scalar:
         return Scalar(int(value), type or dt.int64)
     if isinstance(value, (float, np.floating)):
         return Scalar(float(value), type or dt.float64)
+    if isinstance(value, decimal.Decimal):
+        return _decimal_scalar(value, type)
     raise TypeError(f"cannot build Scalar from {value.__class__.__name__}")
+
+
+def _decimal_scalar(value: decimal.Decimal, type) -> Scalar:
+    if not value.is_finite():
+        raise Invalid(f"decimal scalar {value} is not finite")
+    sign, digits, exp = value.as_tuple()
+    if type is None:   # pyarrow's inference
+        scale = max(0, -exp)
+        precision = max(len(digits) + max(0, exp), scale, 1)
+        type = (dt.decimal128 if precision <= 38 else dt.decimal256)(
+            precision, scale)
+    elif not type.is_decimal:
+        raise TypeError(f"a Decimal does not make a {type} scalar")
+    unscaled = value.scaleb(type.scale, decimal.Context(prec=100))
+    if unscaled != unscaled.to_integral_value():
+        raise Invalid(f"decimal scalar {value} does not fit {type}")
+    return Scalar(int(unscaled), type)
 
 
 Datum = Union[Scalar, Column, RecordBatch]

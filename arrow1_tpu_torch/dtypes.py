@@ -8,8 +8,11 @@ on the host. Temporal types are their storage integers with a unit tag
 (and a time zone for a timestamp): int32 for date32, time32 and
 month_interval, int64 for the rest; a month_day_nano_interval packs
 (months << 32 | days) into its data and carries nanoseconds in the
-column's ``data2``. Validity is an unpacked bool tensor. Decimal and
-nested types come with ROADMAP Queue 1 items 8-9 and raise
+column's ``data2``. A decimal is its unscaled integer in 64-bit limbs,
+least significant first: ``data`` holds limb 0 (int64 bits) and ``data2``
+the rest, the signed high limb of a decimal128 as int64[n], limbs 1-3 of
+a decimal256 as int64[n, 3] (the top one signed). Validity is an unpacked
+bool tensor. Nested types come with ROADMAP Queue 1 item 9 and raise
 ``NotImplementedError_`` here.
 """
 
@@ -21,14 +24,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .errors import NotImplementedError_
+from .errors import Invalid, NotImplementedError_
 
 __all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
            "uint16", "uint32", "uint64", "float16", "float32", "float64",
            "string", "large_string", "binary", "large_binary", "dictionary",
            "date32", "date64", "timestamp", "time32", "time64", "duration",
            "month_interval", "day_time_interval", "month_day_nano_interval",
-           "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
+           "decimal128", "decimal256", "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
            "from_int64"]
 
 _PHYS = {
@@ -53,8 +56,9 @@ _INTERVAL_KINDS = ("month_interval", "day_time_interval",
 _INT32_KINDS = ("date32", "time32", "month_interval")
 _UNITS = {"timestamp": ("s", "ms", "us", "ns"), "time32": ("s", "ms"),
           "time64": ("us", "ns"), "duration": ("s", "ms", "us", "ns")}
-_LATER = "is not ported yet: decimal and nested types come with " \
-    "ROADMAP Queue 1 items 8-9"
+_DECIMAL_KINDS = ("decimal128", "decimal256")
+_MAX_PRECISION = {"decimal128": 38, "decimal256": 76}
+_LATER = "is not ported yet: nested types come with ROADMAP Queue 1 item 9"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,22 +66,30 @@ class DataType:
     """A logical column type, identified by its ``kind``; a
     ``dictionary`` type (the result of dictionary_encode) also names its
     index and value types, a timestamp, time or duration its ``unit``
-    ("s", "ms", "us" or "ns") and a timestamp its time zone ``tz``."""
+    ("s", "ms", "us" or "ns"), a timestamp its time zone ``tz`` and a
+    decimal its ``precision`` and ``scale``."""
 
     kind: str
     index_type: Optional["DataType"] = None
     value_type: Optional["DataType"] = None
     unit: Optional[str] = None
     tz: Optional[str] = None
+    precision: int = 0
+    scale: int = 0
 
     def __post_init__(self):
         if self.kind not in _PHYS and self.kind not in _DICT_KINDS and \
                 self.kind not in _TEMPORAL_KINDS and \
                 self.kind not in _INTERVAL_KINDS and \
+                self.kind not in _DECIMAL_KINDS and \
                 self.kind != "dictionary":
             raise NotImplementedError_(f"type {self.kind!r} {_LATER}")
         if self.kind in _UNITS and self.unit not in _UNITS[self.kind]:
             raise ValueError(f"{self.kind}: bad unit {self.unit!r}")
+        if self.kind in _DECIMAL_KINDS and not \
+                1 <= self.precision <= _MAX_PRECISION[self.kind]:
+            raise Invalid(f"Decimal precision out of range [1, "
+                          f"{_MAX_PRECISION[self.kind]}]: {self.precision}")
 
     @property
     def is_boolean(self) -> bool:
@@ -113,6 +125,15 @@ class DataType:
         return self.kind in _INTERVAL_KINDS
 
     @property
+    def is_decimal(self) -> bool:
+        return self.kind in _DECIMAL_KINDS
+
+    @property
+    def limbs(self) -> int:
+        """64-bit limbs of a decimal's unscaled integer (2 or 4)."""
+        return 2 if self.kind == "decimal128" else 4
+
+    @property
     def is_binary(self) -> bool:
         """Dictionary-encoded string or binary."""
         return self.kind in _DICT_KINDS
@@ -127,7 +148,7 @@ class DataType:
         dictionary-encoded strings, the index type's for dictionaries)."""
         if self.is_dictionary:
             return self.index_type.physical_dtype()
-        if self.is_temporal or self.is_interval:
+        if self.is_temporal or self.is_interval or self.is_decimal:
             return torch.int32 if self.kind in _INT32_KINDS else torch.int64
         return _PHYS.get(self.kind, torch.int32)
 
@@ -135,7 +156,7 @@ class DataType:
         """The numpy dtype of the host copy of ``physical_dtype()``."""
         if self.is_dictionary:
             return self.index_type.numpy_dtype()
-        if self.is_temporal or self.is_interval:
+        if self.is_temporal or self.is_interval or self.is_decimal:
             return np.dtype(np.int32 if self.kind in _INT32_KINDS
                             else np.int64)
         return np.dtype(self.kind if self.kind in _PHYS else np.int32)
@@ -148,6 +169,8 @@ class DataType:
                 (f", tz={self.tz}" if self.tz else "")
         if self.unit is not None:
             return f"{self.kind}[{self.unit}]"
+        if self.is_decimal:
+            return f"{self.kind}({self.precision}, {self.scale})"
         return self.kind
 
 
@@ -199,6 +222,16 @@ def month_day_nano_interval() -> DataType:
     return DataType("month_day_nano_interval")
 
 
+def decimal128(precision: int, scale: int = 0) -> DataType:
+    """Reference: util/basic_decimal.h Decimal128 (precision 1-38)."""
+    return DataType("decimal128", precision=precision, scale=scale)
+
+
+def decimal256(precision: int, scale: int = 0) -> DataType:
+    """Reference: util/basic_decimal.h Decimal256 (precision 1-76)."""
+    return DataType("decimal256", precision=precision, scale=scale)
+
+
 def dictionary(index_type: DataType, value_type: DataType) -> DataType:
     return DataType("dictionary", index_type=index_type,
                     value_type=value_type)
@@ -243,6 +276,10 @@ def from_arrow(pa_type) -> DataType:
         return time64(pa_type.unit)
     if pa.types.is_duration(pa_type):
         return duration(pa_type.unit)
+    if pa.types.is_decimal128(pa_type):
+        return decimal128(pa_type.precision, pa_type.scale)
+    if pa.types.is_decimal256(pa_type):
+        return decimal256(pa_type.precision, pa_type.scale)
     if pa_type == pa.month_day_nano_interval():
         return month_day_nano_interval()
     if str(pa_type) in ("month_interval", "day_time_interval"):
@@ -259,6 +296,8 @@ def to_arrow(t: DataType):
         return pa.timestamp(t.unit, t.tz)
     if t.kind in _UNITS:
         return getattr(pa, t.kind)(t.unit)
+    if t.is_decimal:
+        return getattr(pa, t.kind)(t.precision, t.scale)
     if t.kind in ("month_interval", "day_time_interval"):
         # pyarrow has no Python constructor for these two (nor has the
         # JAX package's export)

@@ -27,6 +27,7 @@ from ..ops import selection
 from ..ops.aggregate import (_as_type, _sum_output_type, high_words,
                              mean_from_words)
 from ..ops.common import as_int64
+from ..ops.decimal import column_limbs, pack
 from ..ops.join import key_planes, key_validity
 from ..ops.padded import (group_sort_padded, join_padded, seg_diff_lo,
                           seg_float_sum, seg_minmax_plane, seg_sum_plane,
@@ -232,15 +233,20 @@ class CompiledPipeline:
                 seen[cname] = (add(col.data), None if col.validity is None
                                else add(col.validity))
             agg_slots.append(seen[cname])
-        # a float64 key's sort key folds -0.0 into +0.0: the emitted key
-        # is read from the group's first row instead
+        # a float64 key's sort key folds -0.0 into +0.0, and a decimal's
+        # limbs do not decode from theirs: the emitted key is read from
+        # the group's first row instead (a decimal's every limb plane and
+        # validity ride as payloads)
         raw_key = {}
         for k in keys:
             kcol = state.batch.column(k)
-            if not sort_key_decodable(kcol):
+            if kcol.dtype.is_decimal:
+                raw_key[k] = [add(x) for x in column_limbs(kcol)] + \
+                    ([] if kcol.validity is None else [add(kcol.validity)])
+            elif not sort_key_decodable(kcol):
                 raise Invalid(f"compiled group_by: key {k!r} is not "
                               "decodable from its sort key")
-            if kcol.data.dtype == torch.float64:
+            elif kcol.data.dtype == torch.float64:
                 raw_key[k] = add(kcol.data)
 
         sg, sorted_p, swords, places, words_at_start = group_sort_padded(
@@ -285,6 +291,10 @@ class CompiledPipeline:
             if col.dtype.is_binary and fn != "count":
                 raise Invalid(f"compiled group_by: {fn} over string column "
                               f"{cname!r} is not ported yet")
+            if col.dtype.is_decimal and fn != "count":   # as the reference
+                raise Invalid(f"compiled group_by: {fn} over decimal column "
+                              f"{cname!r} is not supported: cast it to "
+                              "float64 first, or use the eager group_by")
             xs = sorted_p[di]
             mask_s = None if vi is None else sorted_p[vi]
             if fn == "count":
@@ -323,9 +333,14 @@ class CompiledPipeline:
                 extra = (want(seg_minmax_plane(xs, mask_s, sg, fn == "min",
                                                init)), init, non_nan)
             elif fn in ("variance", "stddev"):
+                # two passes: each slot's mean, then the squared
+                # deviations of its rows (the slots tile the sorted rows)
                 x = xs.to(torch.float64)
-                extra = (sum_ref(x, mask_s, torch.float64),
-                         sum_ref(x * x, mask_s, torch.float64))
+                cnt = seg_float_sum(torch.ones_like(x), mask_s, sg)
+                mean = seg_float_sum(x, mask_s, sg) / cnt.clamp(min=1)
+                slot = (torch.cumsum(sg.first, 0) - 1).clamp(0, G - 1)
+                d = x - mean[slot]
+                extra = (("direct", seg_float_sum(d * d, mask_s, sg)),)
             else:   # any / all
                 extra = (want(seg_minmax_plane(xs != 0, mask_s, sg,
                                                fn == "all", fn == "all")),)
@@ -361,10 +376,7 @@ class CompiledPipeline:
                     acc = torch.where((value(extra[2]) == 0) & (vcount > 0),
                                       float("nan"), acc)
             elif fn in ("variance", "stddev"):
-                s1, s2 = value(extra[0]), value(extra[1])
-                nv = vcount.clamp(min=1).to(torch.float64)
-                mean = s1 / nv
-                acc = (s2 / nv - mean * mean).clamp(min=0.0)
+                acc = value(extra[0]) / vcount.clamp(min=1).to(torch.float64)
                 if fn == "stddev":
                     acc = torch.sqrt(acc)
             else:   # any / all
@@ -377,6 +389,13 @@ class CompiledPipeline:
             names.append(f"{cname}_{fn}")
         for k, (p0, pcnt) in zip(keys, key_spans):
             col = state.batch.column(k)
+            if col.dtype.is_decimal:
+                planes = [sorted_p[i][sg.startpos] for i in raw_key[k]]
+                validity = sg.group_valid if col.validity is None else \
+                    planes.pop() & sg.group_valid
+                cols.append(pack(planes, col.dtype, validity))
+                names.append(k)
+                continue
             vals = []
             for pi in range(p0, p0 + pcnt):
                 wi, shift, bits = places[pi]
@@ -403,25 +422,18 @@ class CompiledPipeline:
         for name, order in sort_keys:
             pairs.extend(minimal_sort_keys(state.batch.column(name), order))
         payloads = [state.live]
-        layout = []   # has_validity per column
-        for c in state.batch.columns:
-            payloads.append(c.data)
-            if c.validity is not None:
-                payloads.append(c.validity)
-            layout.append(c.validity is not None)
-        sorted_ = sort_rows(pairs, payloads)
-        live = sorted_[0]
+        for c in state.batch.columns:   # every plane rides (data2 too)
+            payloads.extend(p for p in (c.data, c.validity, c.data2)
+                            if p is not None)
+        it = iter(sort_rows(pairs, payloads))
+        live = next(it)
         cols = []
-        i = 1
-        for c, has_v in zip(state.batch.columns, layout):
-            data = sorted_[i]
-            i += 1
-            validity = None
-            if has_v:
-                validity = sorted_[i]
-                i += 1
+        for c in state.batch.columns:
+            data = next(it)
+            validity = None if c.validity is None else next(it)
+            data2 = None if c.data2 is None else next(it)
             cols.append(Column(data, c.dtype, validity=validity,
-                               dictionary=c.dictionary))
+                               dictionary=c.dictionary, data2=data2))
         return _State(RecordBatch(tuple(cols), state.batch.names), live,
                       state.overflow, all_live=state.all_live)
 

@@ -124,6 +124,11 @@ def broadcast_scalar(v, batch: RecordBatch):
     from ..column import Column
 
     dev = batch.columns[0].device if batch.columns else torch.device("cpu")
+    if v.dtype.is_decimal:   # every limb, the null scalar's as 0
+        from ..ops.decimal import decimal_planes
+
+        lo, hi = decimal_planes(v, v.dtype, batch.num_rows, dev)
+        return Column(lo, v.dtype, data2=hi)
     fill = v.value
     if isinstance(fill, torch.Tensor):
         data = fill.to(dev, v.dtype.physical_dtype()).reshape(1).expand(

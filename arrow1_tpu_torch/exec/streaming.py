@@ -13,14 +13,20 @@ finalize() merges them:
     min/max: reduce over the partials
     mean:    float64 sum / count over the partials (StreamingGroupBy:
              of an integer column, the exact sum, from the wrapping sum
-             and the sum of the values' high words)
+             and the sum of the values' high words; of a decimal, the
+             exact sum over the count rounded half away from zero, in the
+             input's type, as pyarrow gives it)
     var:     Chan et al. pairwise merge of (sum, count, M2)
     group_by: concat the partial group tables -> re-group (exact, since
              each partial table is keyed)
 
-The JAX package sums an integer column through float64 in
-``StreamingAggregator`` (its partial sums and their total), so its sum
-differs from pyarrow's once a sum passes 2^53; the port's is exact.
+A decimal's partial sums are exact decimal sums (limbs, from the digit
+sums of ops/aggregate.py), and the merge adds them exactly again: no
+float touches a decimal sum or mean. The JAX package sums an integer
+column through float64 in ``StreamingAggregator`` (its partial sums and
+their total), so its sum differs from pyarrow's once a sum passes 2^53,
+and its ``StreamingGroupBy`` divides a decimal sum's low limb for the
+mean (ROADMAP Queue 3); the port's are exact.
 """
 
 from __future__ import annotations
@@ -33,8 +39,12 @@ from .. import dtypes as dt
 from ..column import Column
 from ..datum import Scalar
 from ..errors import Invalid
-from ..ops.aggregate import (_accumulator, _float_values, _min_max_exec,
-                             _sum_output_type, high_words, mean_from_words)
+from ..ops.aggregate import (_accumulator, _as_float_if_decimal,
+                             _float_values, _min_max_exec, _mm_scalar,
+                             _sum_output_type, decimal_exact_sum,
+                             decimal_sum_type, high_words, mean_from_words,
+                             round_half_away)
+from ..ops.decimal import column_limbs, mean_limbs, pack
 from ..ops.common import as_int64
 from ..table import RecordBatch, concat_batches
 
@@ -69,6 +79,14 @@ class StreamingAggregator:
             col = batch.column(cname)
             self._dtypes[i] = col.dtype
             n = col.mask().sum()
+            if col.dtype.is_decimal and fn in ("min", "max"):
+                mm = _min_max_exec([col], None, None)
+                self._partials[i].append(_mm_scalar(mm[fn]))
+                continue
+            if col.dtype.is_decimal and fn in ("sum", "mean"):
+                self._partials[i].append((decimal_exact_sum(col), n))
+                continue
+            col = _as_float_if_decimal(col)
             if fn in ("min", "max"):
                 mm = _min_max_exec([col], None, None)
                 self._partials[i].append(
@@ -94,6 +112,22 @@ class StreamingAggregator:
             name = f"{cname}_{fn}"
             if not parts:
                 out[name] = Scalar(0, dt.int64, is_valid=False)
+                continue
+            t = self._dtypes[i]
+            if t.is_decimal and fn in ("min", "max"):
+                vals = [p.value for p in parts if p.is_valid]
+                v = (min if fn == "min" else max)(vals) if vals else 0
+                out[name] = Scalar(v, t, is_valid=bool(vals))
+                continue
+            if t.is_decimal and fn in ("sum", "mean"):
+                total = sum(p[0] for p in parts)
+                N = sum(int(p[1]) for p in parts)
+                if fn == "sum":
+                    out[name] = Scalar(total, decimal_sum_type(t),
+                                       is_valid=N > 0)
+                else:
+                    out[name] = Scalar(round_half_away(total, N) if N
+                                       else 0, t, is_valid=N > 0)
                 continue
             if fn in ("min", "max"):
                 total_n = sum(int(p[2]) for p in parts)
@@ -162,6 +196,7 @@ class StreamingGroupBy:
                 raise Invalid(f"streaming group_by: {f!r} not mergeable")
         self._expanded = None   # set from the first batch's types
         self._int_means = set()
+        self._decimal_means = {}   # column -> its decimal type
 
     @staticmethod
     def _merge_fn(f: str) -> str:
@@ -178,7 +213,9 @@ class StreamingGroupBy:
                 expanded.append((c, f))
                 continue
             expanded += [(c, "sum"), (c, "count")]
-            if not batch.column(c).dtype.is_floating:
+            if batch.column(c).dtype.is_decimal:
+                self._decimal_means[c] = batch.column(c).dtype
+            elif not batch.column(c).dtype.is_floating:
                 self._int_means.add(c)
                 expanded.append((f"{c}#hi", "sum"))
         self._expanded = list(dict.fromkeys(expanded))
@@ -211,6 +248,11 @@ class StreamingGroupBy:
         for c, f in self._mean_requested:
             n = result.column(f"{c}_count")
             s = result.column(f"{c}_sum")
+            if c in self._decimal_means:   # exact sum / count, rounded
+                mean = pack(mean_limbs(column_limbs(s), n.data.clamp(min=1)),
+                            self._decimal_means[c], n.data > 0)
+                result = result.set_column(f"{c}_mean", mean)
+                continue
             if c in self._int_means:
                 mean = mean_from_words(result.column(f"{c}#hi_sum").data,
                                        as_int64(s.data), n.data)

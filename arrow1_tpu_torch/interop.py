@@ -107,6 +107,8 @@ def column_from_arrow(arr, device=None) -> Column:
                       dictionary=Dictionary(pool))
     if t.kind == "month_day_nano_interval":
         return _from_month_day_nano(arr, t, valid, device)
+    if t.is_decimal:
+        return _from_decimal(arr, t, valid, device)
     if t.is_temporal:
         # the storage integers through a zero-copy view, nulls as 0
         storage = arr.view(pa.int32() if t.numpy_dtype().itemsize == 4
@@ -144,6 +146,26 @@ def _from_month_day_nano(arr, t: dt.DataType, valid, device) -> Column:
                   validity=None if valid is None
                   else _to_device(valid, device),
                   data2=_to_device(nanos, device))
+
+
+def _from_decimal(arr, t: dt.DataType, valid, device) -> Column:
+    """A decimal array's 16- or 32-byte little-endian words read straight
+    from its buffer (a zero-copy view, the array's offset honoured): limb
+    0 into ``data``, the rest into ``data2`` (a decimal128's high limb
+    int64[n], a decimal256's limbs 1-3 int64[n, 3]). Null slots read 0.
+    The JAX package goes value by value through Python Decimals."""
+    nl = t.limbs
+    words = np.frombuffer(arr.buffers()[1], dtype="<i8",
+                          count=(len(arr) + arr.offset) * nl).reshape(
+                              -1, nl)[arr.offset:]
+    if valid is not None:
+        words = np.where(valid[:, None], words, 0)
+    lo = np.ascontiguousarray(words[:, 0])
+    hi = np.ascontiguousarray(words[:, 1] if nl == 2 else words[:, 1:])
+    return Column(_to_device(lo, device), t,
+                  validity=None if valid is None
+                  else _to_device(valid, device),
+                  data2=_to_device(hi, device))
 
 
 def _from_dictionary_array(arr, t: dt.DataType, device) -> Column:
@@ -209,6 +231,17 @@ def column_to_arrow(col: Column):
         rec["d"] = (packed & 0xFFFFFFFF).astype(np.uint32).astype(np.int32)
         rec["n"] = col.data2.cpu().numpy()
         bufs = [None, pa.py_buffer(rec.tobytes())]
+        if mask is not None:
+            bufs[0] = pa.py_buffer(
+                np.packbits(~mask, bitorder="little").tobytes())
+        return pa.Array.from_buffers(dt.to_arrow(col.dtype), n, bufs)
+    if col.dtype.is_decimal:   # the limbs as 16/32-byte words
+        n = col.length
+        hi = col.data2.cpu().numpy().reshape(n, -1)
+        words = np.empty((n, 1 + hi.shape[1]), dtype="<i8")
+        words[:, 0] = col.data.cpu().numpy()
+        words[:, 1:] = hi
+        bufs = [None, pa.py_buffer(words.tobytes())]
         if mask is not None:
             bufs[0] = pa.py_buffer(
                 np.packbits(~mask, bitorder="little").tobytes())

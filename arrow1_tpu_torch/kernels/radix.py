@@ -99,6 +99,8 @@ def minimal_sort_keys(col: Column, order: str = "ascending",
             key = col.data ^ _SIGN
         else:  # bias to unsigned at native width (order-preserving)
             key = col.data.to(torch.int64) + (1 << (kbits - 1))
+    elif t.is_decimal:
+        return _decimal_sort_keys(col, order, null_placement)
     else:
         raise Invalid(f"sort: unsupported type {t}")
 
@@ -116,6 +118,27 @@ def minimal_sort_keys(col: Column, order: str = "ascending",
         cls = torch.where(col.validity, cls, null_cls)
         key = torch.where(col.validity, key, 0)
     return [(cls, 2), (key, kbits)]
+
+
+def decimal_limb_keys(col: Column) -> List[torch.Tensor]:
+    """A decimal's limbs as unsigned 64-bit keys, most significant first:
+    the top limb with its sign bit flipped, the lower limbs as they are
+    (reference: sort.py:115-125)."""
+    hi = col.data2 if col.data2.dim() == 1 else col.data2.flip(1)
+    upper = [hi] if hi.dim() == 1 else list(hi.unbind(1))
+    return [upper[0] ^ _SIGN] + upper[1:] + [col.data]
+
+
+def _decimal_sort_keys(col: Column, order: str, null_placement: str):
+    keys = decimal_limb_keys(col)
+    if order == "descending":
+        keys = [~k for k in keys]
+    if col.validity is None:
+        return [(k, 64) for k in keys]
+    valid_cls, null_cls = (2, 0) if null_placement == "at_start" else (0, 2)
+    cls = torch.where(col.validity, valid_cls, null_cls).to(torch.int64)
+    return [(cls, 2)] + [(torch.where(col.validity, k, 0), 64)
+                         for k in keys]
 
 
 def pack_operands(pairs: Sequence[Tuple[torch.Tensor, int]]
@@ -222,8 +245,8 @@ def decode_packed_key(col: Column, vals: Sequence[torch.Tensor],
 
 def sort_key_decodable(col: Column) -> bool:
     """Whether decode_packed_key inverts minimal_sort_keys for the column
-    (every type of this slice; decimals, later, will not)."""
-    return True
+    (every type but a decimal, whose keys are its limbs)."""
+    return not col.dtype.is_decimal
 
 
 def pack_split(pairs: Sequence[Tuple[torch.Tensor, int]]):

@@ -6,14 +6,21 @@ count_all, count_distinct and the winsorize vector kernel.
 Reference: cpp/src/arrow/compute/kernels/aggregate_basic.cc,
 aggregate_var_std.cc, aggregate_mode.cc, aggregate_quantile.cc. A whole
 column on the card reduces with one torch reduction; these functions have
-no kernel of their own. Null handling follows ScalarAggregateOptions
-(api_aggregate.h:36): skip_nulls, and fewer than min_count valid values
-give a null scalar.
+no kernel of their own. Null handling follows pyarrow's reading of the
+options (api_aggregate.h:36): with ``skip_nulls=False`` a null among the
+values makes the result null (``mode`` empty; ``any``/``all`` follow
+Kleene logic), and fewer than ``min_count`` valid values give a null; a
+sum or product of no value is its identity, a float mean of none NaN.
+The JAX package reads neither option so (ROADMAP Queue 3, repaired here).
 
 Integer sums and products accumulate in int64 and wrap mod 2^64; the
 uint64 results of unsigned inputs are the same bits viewed as uint64.
-Decimal inputs and ``tdigest`` come with the decimal slice (the port's
-types cannot hold a decimal yet).
+A decimal sum is exact: the 32-bit digits of its limbs are summed on the
+device (each digit sum stays below 2^63 for fewer than 2^31 rows) and
+read back in one transfer, then carried on the host. The decimal mean
+(sum / count rounded half away from zero) and product (rounded to the
+scale at each step) keep the input type, as pyarrow's do; min and max
+compare the limbs, and the float statistics read ``decimal_to_float``.
 """
 
 from __future__ import annotations
@@ -93,6 +100,8 @@ class TDigestOptions:
     q: Sequence[float] = (0.5,)
     delta: int = 100
     buffer_size: int = 500
+    skip_nulls: bool = True
+    min_count: int = 0
 
     def __post_init__(self):
         if isinstance(self.q, (int, float)):
@@ -103,6 +112,53 @@ def _valid_count(col: Column) -> int:
     if col.validity is None:
         return col.length
     return int(col.validity.sum())
+
+
+def _null_result(col: Column, options) -> bool:
+    """pyarrow's null result: a null among the values with
+    ``skip_nulls=False``, or fewer valid values than ``min_count``."""
+    nvalid = _valid_count(col)
+    if options is not None and not getattr(options, "skip_nulls", True) \
+            and nvalid < col.length:
+        return True
+    return nvalid < getattr(options, "min_count", 0)
+
+
+def _as_float_if_decimal(col: Column) -> Column:
+    if col.dtype.is_decimal:
+        from .decimal import decimal_to_float
+
+        return decimal_to_float(col)
+    return col
+
+
+def decimal_exact_sum(col: Column) -> int:
+    """The exact unscaled sum of a decimal column: each 32-bit digit of
+    its limbs summed over the valid rows on the column's device (below
+    2^63 for fewer than 2^31 rows), one host read, then carried in a
+    Python int mod the type's width."""
+    from .decimal import digit_planes
+
+    digits = torch.stack(digit_planes(col))
+    if col.validity is not None:
+        digits = torch.where(col.validity, digits, 0)
+    bits = 64 * col.dtype.limbs
+    total = sum(d << (32 * i) for i, d in enumerate(digits.sum(1).tolist()))
+    total &= (1 << bits) - 1
+    return total - (1 << bits) if total >> (bits - 1) else total
+
+
+def decimal_sum_type(t: dt.DataType) -> dt.DataType:
+    """pyarrow's sum type: the widest precision at the input's scale."""
+    return dt.decimal128(38, t.scale) if t.kind == "decimal128" else \
+        dt.decimal256(76, t.scale)
+
+
+def round_half_away(num: int, den: int) -> int:
+    """num / den rounded half away from zero (den > 0)."""
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return -q if num < 0 else q
 
 
 def _sum_output_type(t: dt.DataType) -> dt.DataType:
@@ -192,8 +248,13 @@ register_function("count", "aggregate", 1, CountOptions)(_count_exec)
 def _sum_exec(args, options: ScalarAggregateOptions, ctx):
     (col,) = args
     options = options or ScalarAggregateOptions()
+    if col.dtype.is_decimal:
+        out_t = decimal_sum_type(col.dtype)
+        if _null_result(col, options):
+            return Scalar(0, out_t, is_valid=False)
+        return Scalar(decimal_exact_sum(col), out_t)
     out_t = _sum_output_type(col.dtype)
-    if _valid_count(col) < max(options.min_count, 1):
+    if _null_result(col, options):
         return Scalar(0, out_t, is_valid=False)
     return Scalar(_as_type(_accumulator(col, 0).sum(), out_t), out_t)
 
@@ -201,11 +262,33 @@ def _sum_exec(args, options: ScalarAggregateOptions, ctx):
 register_function("sum", "aggregate", 1, ScalarAggregateOptions)(_sum_exec)
 
 
+def _decimal_product(col: Column) -> int:
+    """The valid values multiplied in row order on the host, rounded half
+    away from zero to the scale after each step (the JAX package's fold,
+    which matches pyarrow); past the precision raises."""
+    from ..column import unscaled_ints
+
+    s, t = col.dtype.scale, col.dtype
+    acc = 1 if not s else None
+    valid = col.mask().tolist()
+    for v, ok in zip(unscaled_ints(col), valid):
+        if ok:
+            acc = v if acc is None else round_half_away(acc * v, 10 ** s)
+    acc = 10 ** s if acc is None else acc
+    if abs(acc) >= 10 ** t.precision:
+        raise Invalid("decimal product overflow")
+    return acc
+
+
 def _product_exec(args, options: ScalarAggregateOptions, ctx):
     (col,) = args
     options = options or ScalarAggregateOptions()
+    if col.dtype.is_decimal:   # pyarrow keeps the input type
+        if _null_result(col, options):
+            return Scalar(0, col.dtype, is_valid=False)
+        return Scalar(_decimal_product(col), col.dtype)
     out_t = _sum_output_type(col.dtype)
-    if _valid_count(col) < max(options.min_count, 1):
+    if _null_result(col, options):
         return Scalar(0, out_t, is_valid=False)
     return Scalar(_as_type(_accumulator(col, 1).prod(), out_t), out_t)
 
@@ -218,9 +301,15 @@ def _mean_exec(args, options: ScalarAggregateOptions, ctx):
     (col,) = args
     options = options or ScalarAggregateOptions()
     nvalid = _valid_count(col)
-    if nvalid < max(options.min_count, 1):
+    if col.dtype.is_decimal:   # pyarrow: the input type, rounded
+        if _null_result(col, options) or nvalid == 0:
+            return Scalar(0, col.dtype, is_valid=False)
+        return Scalar(round_half_away(decimal_exact_sum(col), nvalid),
+                      col.dtype)
+    if _null_result(col, options):
         return Scalar(0.0, dt.float64, is_valid=False)
-    return Scalar(_float_values(col).sum() / nvalid, dt.float64)
+    return Scalar(_float_values(col).sum() / nvalid if nvalid else
+                  float("nan"), dt.float64)
 
 
 register_function("mean", "aggregate", 1, ScalarAggregateOptions)(_mean_exec)
@@ -237,16 +326,21 @@ def _min_max_exec(args, options: ScalarAggregateOptions, ctx):
     (col,) = args
     options = options or ScalarAggregateOptions()
     t = col.dtype
-    if _valid_count(col) < max(options.min_count, 1):
+    if _null_result(col, options) or _valid_count(col) == 0:
         def null():
             return Column(torch.zeros(1, dtype=t.physical_dtype(),
                                       device=col.device), t,
                           validity=torch.zeros(1, dtype=torch.bool,
                                                device=col.device),
-                          dictionary=col.dictionary)
+                          dictionary=col.dictionary,
+                          data2=None if col.data2 is None else
+                          torch.zeros_like(col.data2[:1]))
 
         return RecordBatch((null(), null()), ("min", "max"))
     m = col.mask()
+    if t.is_decimal:
+        return RecordBatch((_decimal_extreme(col, True),
+                            _decimal_extreme(col, False)), ("min", "max"))
     if t.is_binary:
         rank = torch.from_numpy(col.dictionary.rank.astype(np.int64)).to(
             col.device)
@@ -284,8 +378,33 @@ register_function("min_max", "aggregate", 1, ScalarAggregateOptions)(
     _min_max_exec)
 
 
+def _decimal_extreme(col: Column, is_min: bool) -> Column:
+    """The min or max of a decimal column, one row: limb by limb from the
+    top (sign bit flipped), each limb's extreme among the rows that tie on
+    the limbs above it (reference: aggregate.py's lexicographic pass)."""
+    from .decimal import column_limbs, pack
+    from .decimal256 import SIGN
+
+    limbs = column_limbs(col)
+    sel = col.mask()
+    out = [None] * len(limbs)
+    for i in range(len(limbs) - 1, -1, -1):
+        k = limbs[i] if i == len(limbs) - 1 else limbs[i] ^ SIGN
+        fill = torch.iinfo(torch.int64).max if is_min else \
+            torch.iinfo(torch.int64).min
+        v = torch.where(sel, k, fill)
+        e = v.min() if is_min else v.max()
+        sel = sel & (k == e)
+        out[i] = (e if i == len(limbs) - 1 else e ^ SIGN).reshape(1)
+    return pack(out, col.dtype, None)
+
+
 def _mm_scalar(c: Column) -> Scalar:
     valid = c.validity is None or bool(c.validity[0])
+    if c.dtype.is_decimal:
+        from ..column import unscaled_ints
+
+        return Scalar(unscaled_ints(c)[0], c.dtype, is_valid=valid)
     return Scalar(c.data[0], c.dtype, is_valid=valid,
                   dictionary=c.dictionary)
 
@@ -308,11 +427,16 @@ def _any_all(name: str, is_any: bool):
         options = options or ScalarAggregateOptions()
         if not col.dtype.is_boolean:
             raise Invalid(f"{name}: expects boolean")
-        if _valid_count(col) < max(options.min_count, 1):
+        if _valid_count(col) < options.min_count:
             return Scalar(False, dt.bool_, is_valid=False)
         x = col.data if col.validity is None else \
             torch.where(col.validity, col.data, not is_any)
-        return Scalar(x.any() if is_any else x.all(), dt.bool_)
+        r = bool(x.any() if is_any else x.all())
+        if not options.skip_nulls and r != is_any and \
+                _valid_count(col) < col.length:
+            # Kleene: a null decides unless a valid value already did
+            return Scalar(False, dt.bool_, is_valid=False)
+        return Scalar(r, dt.bool_)
 
     return exec_fn
 
@@ -337,9 +461,11 @@ def _drop_nan(col: Column) -> Column:
 def _var_std(is_std: bool):
     def exec_fn(args, options: VarianceOptions, ctx):
         (col,) = args
+        col = _as_float_if_decimal(col)
         options = options or VarianceOptions()
         nvalid = _valid_count(col)
-        if nvalid <= options.ddof or nvalid < max(options.min_count, 1):
+        if nvalid <= options.ddof or nvalid == 0 or \
+                _null_result(col, options):
             return Scalar(0.0, dt.float64, is_valid=False)
         x = _float_values(col)
         mean = x.sum() / nvalid
@@ -393,10 +519,11 @@ def _quantile_values(col: Column, qs, interpolation: str):
 
 def _quantile_exec(args, options: QuantileOptions, ctx):
     (col,) = args
-    col = _drop_nan(col)
     options = options or QuantileOptions()
+    spoilt = _null_result(col, options)
+    col = _drop_nan(_as_float_if_decimal(col))
     nvalid = _valid_count(col)
-    if nvalid == 0 or nvalid < options.min_count:
+    if nvalid == 0 or nvalid < options.min_count or spoilt:
         k = len(options.q)
         return Column(torch.zeros(k, dtype=torch.float64, device=col.device),
                       dt.float64, validity=torch.zeros(
@@ -419,9 +546,10 @@ def _tdigest_exec(args, options: TDigestOptions, ctx):
     ``_tdigest_exec``). With no valid value each quantile is null, as in
     pyarrow (the JAX package gives an empty column: ROADMAP Queue 3)."""
     (col,) = args
-    col = _drop_nan(col)
     options = options or TDigestOptions()
-    if _valid_count(col) == 0:
+    spoilt = _null_result(col, options)
+    col = _drop_nan(_as_float_if_decimal(col))
+    if _valid_count(col) == 0 or spoilt:
         k = len(options.q)
         return Column(torch.zeros(k, dtype=torch.float64, device=col.device),
                       dt.float64, validity=torch.zeros(
@@ -442,12 +570,14 @@ def _mode_exec(args, options: ModeOptions, ctx):
 
     (col,) = args
     options = options or ModeOptions()
-    if _valid_count(col) == 0:
+    if _valid_count(col) == 0 or _null_result(col, options):
         t = col.dtype
         return RecordBatch(
             (Column(torch.zeros(0, dtype=t.physical_dtype(),
                                 device=col.device), t,
-                    dictionary=col.dictionary),
+                    dictionary=col.dictionary,
+                    data2=None if col.data2 is None else
+                    col.data2[:0]),
              Column(torch.zeros(0, dtype=torch.int64, device=col.device),
                     dt.int64)), ("mode", "count"))
     keys = col
@@ -495,7 +625,12 @@ def _index_exec(args, options, ctx):
         raise Invalid("index: needs a value argument or IndexOptions.value")
     if not isinstance(target, Scalar):
         raise Invalid("index: the value to find must be a scalar")
-    if values.dtype.is_binary:
+    if values.dtype.is_decimal:
+        from .decimal import decimal_compare
+
+        hit = decimal_compare(values, target, "equal")
+        hit = hit.data & hit.mask()
+    elif values.dtype.is_binary:
         sval = target.as_py()
         codes = np.flatnonzero(values.dictionary.values == sval)
         hit = values.data == (int(codes[0]) if len(codes) else -1)
@@ -526,6 +661,10 @@ def _first_last_idx(col: Column):
 def _value_scalar(col: Column, i: int) -> Scalar:
     if i < 0:
         return Scalar(0, col.dtype, is_valid=False)
+    if col.dtype.is_decimal:
+        from ..column import unscaled_ints
+
+        return Scalar(unscaled_ints(col.slice(i, 1))[0], col.dtype)
     if col.dictionary is not None:
         return Scalar(col.dictionary.values[int(col.data[i])], col.dtype)
     return Scalar(col.data[i], col.dtype)
@@ -549,15 +688,14 @@ def _first_last_exec(args, options: ScalarAggregateOptions, ctx):
 
     def one_row(k):
         if k >= 0:
-            return Column(col.data[k:k + 1], col.dtype,
-                          validity=None if col.validity is None
-                          else col.validity[k:k + 1],
-                          dictionary=col.dictionary)
+            return col.slice(k, 1)
         return Column(torch.zeros(1, dtype=col.dtype.physical_dtype(),
                                   device=col.device), col.dtype,
                       validity=torch.zeros(1, dtype=torch.bool,
                                            device=col.device),
-                      dictionary=col.dictionary)
+                      dictionary=col.dictionary,
+                      data2=None if col.data2 is None else
+                      torch.zeros_like(col.data2[:1]))
 
     i, j = _first_last_idx(col)
     return RecordBatch((one_row(i), one_row(j)), ("first", "last"))
@@ -603,6 +741,7 @@ class SkewOptions:
 
 
 def _central_moments(col: Column):
+    col = _as_float_if_decimal(col)
     x = _float_values(col)
     nv = _valid_count(col)
     if nv == 0:
@@ -619,7 +758,7 @@ def _skew_exec(args, options: SkewOptions, ctx):
     (col,) = args
     options = options or SkewOptions()
     nv, m2, m3, _ = _central_moments(col)
-    if nv < (2 if options.biased else 3):
+    if nv < (2 if options.biased else 3) or _null_result(col, options):
         return Scalar(0.0, dt.float64, is_valid=False)
     g1 = m3 / torch.clamp(m2, min=1e-300) ** 1.5
     if not options.biased:
@@ -632,7 +771,7 @@ def _kurtosis_exec(args, options: SkewOptions, ctx):
     (col,) = args
     options = options or SkewOptions()
     nv, m2, _, m4 = _central_moments(col)
-    if nv < (2 if options.biased else 4):
+    if nv < (2 if options.biased else 4) or _null_result(col, options):
         return Scalar(0.0, dt.float64, is_valid=False)
     g2 = m4 / torch.clamp(m2 * m2, min=1e-300) - 3.0
     if not options.biased:
@@ -649,9 +788,10 @@ def _approximate_median_exec(args, options: ScalarAggregateOptions, ctx):
     """Reference: approximate_median (t-digest backed); the exact median
     is within its contract."""
     (col,) = args
-    col = _drop_nan(col)
     options = options or ScalarAggregateOptions()
-    if _valid_count(col) < max(options.min_count, 1):
+    spoilt = _null_result(col, options)
+    col = _drop_nan(_as_float_if_decimal(col))
+    if _valid_count(col) == 0 or spoilt:
         return Scalar(0.0, dt.float64, is_valid=False)
     (q,) = _quantile_values(col, [0.5], "linear")
     return Scalar(q, dt.float64)

@@ -15,7 +15,8 @@ unsigned ones do. Its order compares flip the sign bit first, and its
 division is the unsigned quotient of ``_udiv64``.
 
 ``sign`` follows pyarrow where the reference does not (ROADMAP Queue 3):
-the sign of 0.0 and -0.0 is 0.0.
+the sign of 0.0 and -0.0 is 0.0, and of a decimal an int64. Decimal
+arguments go to ops/decimal.py (``power`` of one computes in float64).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from ..kernels.radix import _SIGN
 from ..registry import register_function
 from .common import (as_int64, column_device, common_type, from_int64,
                      intersect_validity, result_column, unpack)
+from .decimal import (as_float_operand, decimal_abs, decimal_arith,
+                      decimal_negate, decimal_sign)
 
 __all__ = ["ArithmeticOptions"]
 
@@ -207,6 +210,8 @@ def _temporal_arith(name, args):
 
 def _binary_arith(name, op, overflow_fn):
     def exec_fn(args, options, ctx):
+        if any(a.dtype.is_decimal for a in args):
+            return decimal_arith(name, args)
         if any(a.dtype.is_binary for a in args):
             raise Invalid(f"{name}: non-numeric inputs")
         if any(a.dtype.is_temporal for a in args):
@@ -242,6 +247,8 @@ for _base, _op, _ovf in (("add", torch.add, _add_overflow),
 
 def _divide_exec(checked):
     def exec_fn(args, options, ctx):
+        if any(a.dtype.is_decimal for a in args):
+            return decimal_arith("divide", args)
         if any(a.dtype.is_temporal for a in args):
             return _temporal_arith("divide", args)
         out_t = common_type(args)
@@ -284,6 +291,8 @@ def _negate_exec(checked):
     def exec_fn(args, options, ctx):
         (a,) = args
         out_t = a.dtype
+        if out_t.is_decimal:
+            return decimal_negate(a)
         if not out_t.is_numeric:
             raise NotImplementedError_(f"negate of {out_t} is not ported")
         (x,), validities, n = unpack(args, out_t)
@@ -326,6 +335,8 @@ def _ipow(x, y):
 
 def _power_exec(checked):
     def exec_fn(args, options, ctx):
+        if any(a.dtype.is_decimal for a in args):   # float64, as pyarrow
+            args = [as_float_operand(a) for a in args]
         out_t = common_type(args)
         _check_numeric("power", args, out_t)
         (x, y), validities, n = unpack(args, out_t)
@@ -382,6 +393,8 @@ def _abs_exec(checked):
     def exec_fn(args, options, ctx):
         (a,) = args
         out_t = a.dtype
+        if out_t.is_decimal:
+            return decimal_abs(a)
         if not out_t.is_numeric:
             raise NotImplementedError_(f"abs of {out_t} is not ported")
         (x,), validities, n = unpack(args, out_t)
@@ -402,6 +415,8 @@ def _sign_exec(args, options, ctx):
     """-1, 0 or 1 (int8 for integers, the input's type for floats; NaN
     stays NaN, and either zero gives 0.0 as in pyarrow)."""
     (a,) = args
+    if a.dtype.is_decimal:
+        return decimal_sign(a)
     if not a.dtype.is_numeric:
         raise NotImplementedError_(f"sign of {a.dtype} is not ported")
     out_t = a.dtype if a.dtype.is_floating else dt.int8

@@ -31,8 +31,16 @@ def _from_wide(r, t):
     return from_int64(r & _WIDE[t.kind], t.physical_dtype())
 
 
+def _no_decimal(name, args):
+    """A decimal has no bitwise form: TypeError, as the JAX package's
+    numeric promotion raises for one."""
+    if any(a.dtype.is_decimal for a in args):
+        raise TypeError(f"{name}: expects integers, not a decimal")
+
+
 def _bitwise_binary(name, fn):
     def exec_fn(args, options, ctx):
+        _no_decimal(name, args)
         out_t = common_type(args)
         if not out_t.is_integer:
             raise Invalid(f"{name}: expects integers")
@@ -66,6 +74,7 @@ register_function("bit_wise_not", "scalar", 1)(_bit_wise_not_exec)
 
 def _shift(name, left: bool, checked: bool):
     def exec_fn(args, options, ctx):
+        _no_decimal(name, args)
         out_t = common_type(args)
         if not out_t.is_integer:
             raise Invalid(f"{name}: expects integers")

@@ -1,5 +1,4 @@
-"""Casts (counterpart of arrow1_tpu/ops/cast.py, all but its decimal
-part).
+"""Casts (counterpart of arrow1_tpu/ops/cast.py).
 
 Covered: int, uint, float and bool between each other, an explicit
 dictionary column to its values, numeric, bool and temporal to string
@@ -13,9 +12,10 @@ reference's safety toggles (cast.h:44): a safe cast raises on integer
 overflow, on a float to integer cast that would drop a fraction, on NaN
 or inf into an integer, and on a temporal cast to a coarser unit that
 would drop ticks (``allow_time_truncate``), each from a device flag
-reduced on the host (one sync), as the checked arithmetic does. Decimal
-types are not types of the port yet: a cast to one raises
-``NotImplementedError_`` (ROADMAP Queue 1 item 8).
+reduced on the host (one sync), as the checked arithmetic does. Decimals
+cast to and from integers, floats, other decimals (``allow_decimal_
+truncate``) and strings through ops/decimal.py: limb math on the device,
+strings formatted or parsed per distinct value on the host.
 
 uint16, uint32 and uint64 move through int64 (``dtypes.as_int64``): torch
 converts and compares little in them. An unsafe float to integer cast of
@@ -32,20 +32,21 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..column import Column, Dictionary
+from ..column import Column, Dictionary, unscaled_ints
 from ..datum import Scalar, as_datum
-from ..errors import Invalid, NotImplementedError_
+from ..errors import Invalid
 from ..kernels.radix import _SIGN
 from ..registry import register_function
 from .arithmetic import _raise_if
 from .common import as_int64, from_int64, result_column, unpack
+from .decimal import (cast_to_decimal, column_limbs, decimal_cast,
+                      decimal_to_float, pack)
+from .decimal256 import full
 from .strings import with_pool
 
 __all__ = ["CastOptions", "cast", "convert", "int_range",
            "temporal_to_common"]
 
-_LATER = ("casts from or to decimal types are not ported yet "
-          "(ROADMAP Queue 1 item 8)")
 _UNIT_NS = {"s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "ns": 1}
 
 
@@ -244,6 +245,13 @@ def _parse_string_uniques(values, dst: dt.DataType):
     elif dst.is_temporal:
         table = [attempt(lambda v=v: F.parse_temporal(v, dst), i, 0)
                  for i, v in enumerate(vals)]
+    elif dst.is_decimal:   # one row of limbs per value
+        from .decimal256 import const_limbs
+
+        ints = [attempt(lambda v=v: F.parse_decimal(
+            v, dst.precision, dst.scale), i, 0) for i, v in enumerate(vals)]
+        return np.array([const_limbs(v, dst.limbs) for v in ints],
+                        np.int64).reshape(-1, dst.limbs), ok, err[0]
     else:
         raise Invalid(f"unsupported cast string -> {dst}")
     return np.array(table, dst.numpy_dtype()), ok, err[0]
@@ -258,6 +266,12 @@ def _format_to_strings(x: torch.Tensor, src: dt.DataType):
 
     if src.is_boolean:
         return np.array(["false", "true"], object), x.to(torch.int32)
+    if src.is_decimal:   # x: the column; its distinct limb rows
+        rows = torch.stack(column_limbs(x), 1)
+        uniq, inv = torch.unique(rows, dim=0, return_inverse=True)
+        vals = unscaled_ints(pack(list(uniq.unbind(1)), src, None))
+        return np.array([F.format_decimal(v, src.scale) for v in vals],
+                        object), inv.to(torch.int32)
     if src.is_temporal:
         uniq, inv = torch.unique(x.to(torch.int64), return_inverse=True)
         return F.format_temporal_values(uniq, src), inv.to(torch.int32)
@@ -285,15 +299,17 @@ def _cast_exec(args, options: CastOptions, ctx):
     if dst is None:
         raise Invalid("cast requires target_type")
     if not isinstance(dst, dt.DataType):
-        try:
-            dst = dt.from_arrow(dst)
-        except NotImplementedError_:
-            raise NotImplementedError_(f"cast to {dst}: {_LATER}") from None
+        dst = dt.from_arrow(dst)
     src = a.dtype
     if src == dst:
         return a
-    (x,), validities, n = unpack(args)
-    validity = validities[0]
+    if src.is_decimal:   # its limbs are read where they are needed
+        x, n = None, (a.length if isinstance(a, Column) else None)
+        validity = a.validity if isinstance(a, Column) else \
+            (None if a.is_valid else False)
+    else:
+        (x,), validities, n = unpack(args)
+        validity = validities[0]
 
     # an explicit dictionary: its values through the codes (reference: a
     # cast from a dictionary unpacks, scalar_cast_nested.cc)
@@ -330,26 +346,84 @@ def _cast_exec(args, options: CastOptions, ctx):
         if not all(ok):
             ok_t = torch.from_numpy(np.array(ok)).to(x.device)
             _raise_if(~ok_t[codes], err, validity)
+        if dst.is_decimal:   # a table row per pool value: all its limbs
+            rows = torch.from_numpy(table).to(x.device)
+            rows = rows[codes] if len(d) else torch.zeros(
+                (codes.shape[0], dst.limbs), dtype=torch.int64,
+                device=x.device)
+            out = pack(list(rows.unbind(1)), dst,
+                       None if validity is False else validity)
+            return _decimal_result(out, validity, n)
         data = torch.from_numpy(table).to(x.device)[codes] if len(d) else \
             torch.zeros_like(x, dtype=dst.physical_dtype())
         return result_column(data, dst, validity, n)
     if dst.is_binary:
         # numeric and bool -> string: each distinct value formatted once
         # (reference util/formatting.h), the rows keep its index as code
-        strs, codes = _format_to_strings(x, src)
+        strs, codes = _format_to_strings(
+            _decimal_column(a) if src.is_decimal else x, src)
         if n is None:
             return Scalar(codes, dst, is_valid=validity is not False,
                           dictionary=Dictionary(strs))
         if validity is False:
-            validity = torch.zeros(n, dtype=torch.bool, device=x.device)
+            validity = torch.zeros(n, dtype=torch.bool, device=codes.device)
         return with_pool(codes, dst, validity, strs)
     if dst.is_dictionary:
         raise Invalid(f"unsupported cast {src} -> {dst}")
+    if src.is_decimal or dst.is_decimal:
+        return _cast_decimal(a, src, dst, options)
     if src.is_temporal or dst.is_temporal:
         return result_column(_cast_temporal(x, src, dst, options, validity),
                              dst, validity, n)
     return result_column(_cast_numeric(x, src, dst, options, validity),
                          dst, validity, n)
+
+
+def _decimal_column(a):
+    """A decimal column, or a decimal scalar as a one-row column."""
+    if isinstance(a, Column):
+        return a
+    return pack(full(int(a.value) if a.is_valid else 0, a.dtype.limbs, 1,
+                     "cpu"), a.dtype, None)
+
+
+def _decimal_result(out: Column, validity, n):
+    """A decimal cast's column, or its one row as a Scalar when the input
+    was a scalar."""
+    if n is not None:
+        if validity is False:
+            return pack(column_limbs(out), out.dtype, torch.zeros(
+                n, dtype=torch.bool, device=out.device))
+        return out
+    return Scalar(unscaled_ints(out)[0], out.dtype,
+                  is_valid=validity is not False)
+
+
+def _cast_decimal(a, src: dt.DataType, dst: dt.DataType,
+                  options: CastOptions):
+    """decimal -> float (limb-exact, then rounded once per limb as the
+    JAX package does), decimal -> decimal or integer, and integer or
+    float -> decimal (ops/decimal.py)."""
+    col = _decimal_column(a) if src.is_decimal else a
+    n = a.length if isinstance(a, Column) else None
+    validity = a.validity if isinstance(a, Column) else \
+        (None if a.is_valid else False)
+    if src.is_decimal and dst.is_floating:
+        f = decimal_to_float(col).data
+        return result_column(f.to(dst.physical_dtype()) if n is not None
+                             else f[0].to(dst.physical_dtype()), dst,
+                             validity, n)
+    if src.is_decimal and (dst.is_decimal or dst.is_integer):
+        out = decimal_cast(col, dst, bool(options.allow_decimal_truncate))
+        if dst.is_integer:
+            return result_column(out.data if n is not None else out.data[0],
+                                 dst, validity, n)
+        return _decimal_result(out, validity, n)
+    if dst.is_decimal and (src.is_integer or src.is_floating):
+        if n is None:
+            raise Invalid(f"cast of a {src} scalar to {dst}: use a column")
+        return _decimal_result(cast_to_decimal(a, dst), validity, n)
+    raise Invalid(f"unsupported cast {src} -> {dst}")
 
 
 def _cast_temporal(x, src, dst, options: CastOptions, validity):

@@ -12,7 +12,9 @@ on the column's device; only the pool's rank table is made on the host.
 The element-wise min and max follow pyarrow where the reference does not
 (ROADMAP Queue 3): a NaN loses to any number (NaN only where every input
 is NaN or null), and of two equal values (0.0 and -0.0) the earlier
-argument's is kept, as pyarrow does for float64.
+argument's is kept, as pyarrow does for float64. Decimals compare at the
+common scale (ops/decimal.py); their element-wise min and max take one
+decimal type (scalars rescale to it), as pyarrow does.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .cast import temporal_to_common
 from .common import (broadcast_length, column_device, common_type,
                      intersect_validity, minmax_domain, result_column,
                      unpack)
+from .decimal import decimal_compare, decimal_minmax_element_wise
 from .dictionary import one_pool
 
 __all__ = ["ElementWiseAggregateOptions"]
@@ -106,6 +109,8 @@ def _compare_exec(name):
     op = _OPS[name]
 
     def exec_fn(args, options, ctx):
+        if any(a.dtype.is_decimal for a in args):
+            return decimal_compare(args[0], args[1], name)
         if any(a.dtype.is_binary for a in args):
             if not all(a.dtype.is_binary for a in args):
                 raise Invalid(f"{name}: cannot compare string with "
@@ -184,6 +189,9 @@ def _minmax_element_wise(name):
     def exec_fn(args, options, ctx):
         n = broadcast_length(args)
         dev = column_device(args)
+        if any(a.dtype.is_decimal for a in args):
+            return decimal_minmax_element_wise(
+                args, is_min, options is None or options.skip_nulls)
         if any(a.dtype.is_binary for a in args):
             cols = one_pool(args, n or 1, dev)
             d = cols[0].dictionary

@@ -5,7 +5,8 @@ arrow1_tpu/ops/conditional.py).
 Reference: compute/kernels/scalar_if_else.cc (CaseWhen, Choose),
 vector_replace.cc (ReplaceWithMask) and vector_swizzle.cc
 (InversePermutation). Each is a few elementwise selects and gathers.
-Dictionary-encoded string cases with different pools are unified first.
+Dictionary-encoded string cases with different pools are unified first;
+decimal cases are rescaled to their common type and select every limb.
 ``inverse_permutation`` takes, for each output slot, the largest input
 position that names it (``scatter_reduce`` amax: the same answer on every
 device, where a plain scatter of duplicates is not).
@@ -23,9 +24,29 @@ from ..datum import Scalar
 from ..errors import IndexError_, Invalid
 from ..registry import register_function
 from ..table import RecordBatch
+from .decimal import common_decimal_type, decimal_planes
 from .dictionary import one_pool
 
 __all__ = ["InversePermutationOptions"]
+
+
+def _where2(c: torch.Tensor, a, b):
+    """torch.where over a column's data2 (a decimal256's [n, 3] too)."""
+    if a is None:
+        return None
+    return torch.where(c if a.dim() == 1 else c[:, None], a, b)
+
+
+def _as_decimal(cols, n: int, dev):
+    """Decimal cases at their common type (ops/decimal.py)."""
+    if not cols or not cols[0].dtype.is_decimal:
+        return cols
+    t = common_decimal_type([c.dtype for c in cols])
+    out = []
+    for c in cols:
+        lo, hi = decimal_planes(c, t, n, dev)
+        out.append(Column(lo, t, validity=c.validity, data2=hi))
+    return out
 
 
 def _as_len(col, n: int, dev):
@@ -35,6 +56,10 @@ def _as_len(col, n: int, dev):
         t = col.dtype
         if t.is_binary:
             return one_pool([col], n, dev)[0]
+        if t.is_decimal:
+            lo, hi = decimal_planes(col, t, n, dev)
+            return Column(lo, t, data2=hi, validity=None if col.is_valid
+                          else torch.zeros(n, dtype=torch.bool, device=dev))
         return Column(torch.full((n,), col.as_py() if col.is_valid else 0,
                                  dtype=t.physical_dtype(), device=dev), t,
                       validity=None if col.is_valid else
@@ -43,7 +68,9 @@ def _as_len(col, n: int, dev):
         return Column(col.data.expand(n), col.dtype,
                       validity=None if col.validity is None
                       else col.validity.expand(n),
-                      dictionary=col.dictionary)
+                      dictionary=col.dictionary,
+                      data2=None if col.data2 is None
+                      else col.data2.expand(n, *col.data2.shape[1:]))
     return col
 
 
@@ -68,19 +95,24 @@ def _case_when_exec(args, options, ctx):
                       "(+ optional else)")
     n = cond.num_rows
     dev = cond.columns[0].device if cond.columns else torch.device("cpu")
-    cases = _unify_if_binary([_as_len(c, n, dev) for c in args[1:]])
+    cases = _as_decimal(_unify_if_binary(
+        [_as_len(c, n, dev) for c in args[1:]]), n, dev)
     if len(cases) == nconds + 1:
-        out, out_valid = cases[-1].data, cases[-1].mask()
+        out, out2 = cases[-1].data, cases[-1].data2
+        out_valid = cases[-1].mask()
     else:
         out = torch.zeros_like(cases[0].data)
+        out2 = None if cases[0].data2 is None else \
+            torch.zeros_like(cases[0].data2)
         out_valid = torch.zeros(n, dtype=torch.bool, device=dev)
     for j in reversed(range(nconds)):
         cj = cond.columns[j]
         fire = cj.data & cj.mask()
         out = torch.where(fire, cases[j].data, out)
+        out2 = _where2(fire, cases[j].data2, out2)
         out_valid = torch.where(fire, cases[j].mask(), out_valid)
     return Column(out, cases[0].dtype, validity=out_valid,
-                  dictionary=cases[0].dictionary)
+                  dictionary=cases[0].dictionary, data2=out2)
 
 
 register_function("case_when", "scalar", -1)(_case_when_exec)
@@ -93,14 +125,17 @@ def _choose_exec(args, options, ctx):
     if not vals:
         raise Invalid("choose: need at least one value")
     n, dev = idx.length, idx.device
-    vals = _unify_if_binary([_as_len(v, n, dev) for v in vals])
+    vals = _as_decimal(_unify_if_binary(
+        [_as_len(v, n, dev) for v in vals]), n, dev)
     stacked = torch.stack([v.data for v in vals])          # [k, n]
     vmask = torch.stack([v.mask() for v in vals])
     i = idx.data.to(torch.int64).clamp(0, len(vals) - 1)
     rows = torch.arange(n, device=dev)
+    data2 = None if vals[0].data2 is None else \
+        torch.stack([v.data2 for v in vals])[i, rows]
     return Column(stacked[i, rows], vals[0].dtype,
                   validity=vmask[i, rows] & idx.mask(),
-                  dictionary=vals[0].dictionary)
+                  dictionary=vals[0].dictionary, data2=data2)
 
 
 register_function("choose", "scalar", -1)(_choose_exec)
@@ -116,9 +151,15 @@ def _replace_with_mask_exec(args, options, ctx):
     fire = mask.data & mask.mask()
     ri = (torch.cumsum(fire.to(torch.int64), 0) - 1).clamp(
         0, max(repl.length - 1, 0))
+    if a.dtype.is_decimal:
+        a, repl = _as_decimal([a, repl], a.length, a.device)[0], \
+            _as_decimal([a, repl], repl.length, a.device)[1]
     out = torch.where(fire, repl.data[ri], a.data)
+    out2 = None if a.data2 is None else \
+        _where2(fire, repl.data2[ri], a.data2)
     out_valid = torch.where(fire, repl.mask()[ri], a.mask()) & mask.mask()
-    return Column(out, a.dtype, validity=out_valid, dictionary=a.dictionary)
+    return Column(out, a.dtype, validity=out_valid, dictionary=a.dictionary,
+                  data2=out2)
 
 
 register_function("replace_with_mask", "scalar", 3)(_replace_with_mask_exec)

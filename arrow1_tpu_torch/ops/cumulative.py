@@ -34,6 +34,8 @@ from ..registry import register_function
 from .arithmetic import _mul_overflow, _raise_if, _sub_overflow
 from .cast import convert, int_range
 from .common import as_int64, minmax_domain
+from .decimal import decimal_subtract
+from .selection import take_column
 
 __all__ = ["CumulativeOptions", "CumulativeSumOptions", "PairwiseOptions"]
 
@@ -200,7 +202,7 @@ def _pairwise_diff(checked):
         options = options or PairwiseOptions()
         p = int(options.period)
         t = a.dtype
-        if not t.is_numeric and not t.is_temporal:
+        if not t.is_numeric and not t.is_temporal and not t.is_decimal:
             raise Invalid("pairwise_diff: expects numeric")
         n = a.length
         dev = a.device
@@ -210,6 +212,10 @@ def _pairwise_diff(checked):
         valid = in_range
         if a.validity is not None:
             valid = valid & a.validity & a.validity[src_c]
+        if t.is_decimal:   # exact, the decimal subtract's type
+            d = decimal_subtract(Column(a.data, t, data2=a.data2),
+                                 take_column(a, src_c))
+            return Column(d.data, d.dtype, validity=valid, data2=d.data2)
         x64 = None if t.is_floating else as_int64(a.data)
         if t.is_temporal:
             if t.kind == "date32":
@@ -261,8 +267,11 @@ def _fill_null_directional(backward: bool):
         src = pos[k.clamp(0, max(pos.shape[0] - 1, 0))] if pos.numel() \
             else torch.zeros_like(k)
         data = torch.where(has, a.data[src], a.data)
+        data2 = None if a.data2 is None else torch.where(
+            has if a.data2.dim() == 1 else has[:, None], a.data2[src],
+            a.data2)
         return Column(data, a.dtype, validity=valid | has,
-                      dictionary=a.dictionary)
+                      dictionary=a.dictionary, data2=data2)
 
     return exec_fn
 

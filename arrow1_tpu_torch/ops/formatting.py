@@ -15,8 +15,9 @@ format as the reference's cast to string does (ISO 8601: a date
 YYYY-MM-DD, a time hh:mm:ss with the unit's fraction, a timestamp the
 two with a space, a zoned one with its offset +hhmm; a duration its
 integer) and parse from ISO 8601 (value_parsing.h
-ParseTimestampISO8601). The decimal forms come with ROADMAP Queue 1
-item 8.
+ParseTimestampISO8601). A decimal formats its unscaled integer with the
+scale's point (``format_decimal``) and parses from plain or exponent
+notation, exactly (``parse_decimal``; reference decimal.cc FromString).
 """
 
 from __future__ import annotations
@@ -210,3 +211,46 @@ def parse_bool(s: str) -> bool:
     if v is None:
         raise Invalid(f"Failed to parse value: {s}")
     return v
+
+
+def format_decimal(unscaled: int, scale: int) -> str:
+    """Arrow's Decimal ToString (decimal.cc AdjustIntegerStringWithScale):
+    plain digits with the scale's point, or, for a negative scale or an
+    adjusted exponent below -6 (Java's BigDecimal rule), one digit, the
+    rest after a point, and E with the exponent: 1E-10, -1.23E-7, 0E-30.
+    The JAX package always writes plain digits."""
+    sign = "-" if unscaled < 0 else ""
+    s = str(abs(unscaled))
+    if scale == 0:
+        return sign + s
+    exponent = len(s) - 1 - scale
+    if scale < 0 or exponent < -6:
+        mantissa = s[0] + ("." + s[1:] if len(s) > 1 else "")
+        return f"{sign}{mantissa}E{'+' if exponent >= 0 else ''}{exponent}"
+    s = s.rjust(scale + 1, "0")
+    return sign + s[:-scale] + "." + s[-scale:]
+
+
+_DEC_RE = re.compile(
+    r"([+-]?)([0-9]*)(?:\.([0-9]*))?(?:[eE]([+-]?[0-9]+))?\Z")
+
+
+def parse_decimal(s: str, precision: int, scale: int) -> int:
+    """The unscaled integer at ``scale``; raises on a malformed value, on
+    digits lost to the scale, or past the precision."""
+    m = _DEC_RE.match(s.strip())
+    if not m or (not m.group(2) and not m.group(3)):
+        raise Invalid(f"Failed to parse string: {s!r} as decimal")
+    sign = -1 if m.group(1) == "-" else 1
+    whole, frac = m.group(2) or "0", m.group(3) or ""
+    unscaled = int(whole + frac)
+    eff_scale = len(frac) - int(m.group(4) or 0)
+    if eff_scale <= scale:
+        unscaled *= 10 ** (scale - eff_scale)
+    else:
+        unscaled, r = divmod(unscaled, 10 ** (eff_scale - scale))
+        if r:
+            raise Invalid("Rescaling Decimal value would cause data loss")
+    if unscaled >= 10 ** precision:
+        raise Invalid(f"Decimal value {s!r} exceeds precision {precision}")
+    return sign * unscaled

@@ -38,9 +38,11 @@ from ..errors import Invalid, NotImplementedError_
 from ..kernels.segsum2 import MAX_G, segment_sums
 from ..registry import register_function
 from ..table import RecordBatch
-from .aggregate import (_as_type, _sum_output_type, high_words,
-                        mean_from_words)
+from .aggregate import (_as_type, _sum_output_type, decimal_sum_type,
+                        high_words, mean_from_words)
 from .common import as_int64, minmax_domain
+from .decimal import (decimal_to_float, digit_planes, group_extreme,
+                      limbs_from_digit_sums, mean_limbs, pack)
 from .hash import (group_ids_of, grouping_by_keys, grouping_from_ids,
                    grouping_full, grouping_key_pairs, segment_count,
                    segment_minmax, segment_sum)
@@ -92,6 +94,18 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
     def float_sum(x):
         return segment_sum(x, sorted_ids(), torch.float64)
 
+    if t.is_decimal and fn in _DECIMAL_FLOAT_AGGS:
+        return _grouped(decimal_to_float(col), fn, gids, ngroups)
+    if t.is_decimal and fn in _DECIMAL_EXACT_AGGS:
+        masked_digits = torch.stack(digit_planes(col))
+        if valid is not None:
+            masked_digits = torch.where(valid, masked_digits, 0)
+        sums = torch.zeros((masked_digits.shape[0], ngroups),
+                           dtype=torch.int64, device=dev).index_add_(
+                               1, gids, masked_digits)
+        return _decimal_results(col, fn, list(sums), vcount, gids, ngroups)
+    if t.is_decimal and fn == "product":
+        raise Invalid("group product: unsupported for decimal inputs")
     if fn == "count":
         return [("count", Column(vcount, dt.int64))]
     if fn == "count_all":
@@ -155,11 +169,12 @@ def _grouped(col: Column, fn: str, gids: torch.Tensor, ngroups: int):
             out.append(("max", reduce(y_max, small, "amax")))
         return out
     if fn in ("variance", "stddev"):
+        # two passes: the group's mean, then its squared deviations
         x = masked(col.data.to(torch.float64), 0.0)
-        s1, s2 = float_sum(x), float_sum(x * x)
         nvalid = vcount.to(torch.float64).clamp(min=1)
-        mean = s1 / nvalid
-        var = (s2 / nvalid - mean * mean).clamp(min=0.0)
+        mean = float_sum(x) / nvalid
+        d = masked(x - mean[gids], 0.0)
+        var = float_sum(d * d) / nvalid
         out = torch.sqrt(var) if fn == "stddev" else var
         return [(fn, Column(out, dt.float64, validity=vcount > 0))]
     if fn in ("any", "all"):
@@ -260,6 +275,21 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
     def masked(x, fill):
         return x if valid is None else torch.where(valid, x, fill)
 
+    if t.is_decimal and fn in _DECIMAL_FLOAT_AGGS:
+        return _grouped_seg(decimal_to_float(col), fn, g)
+    if t.is_decimal and fn in _DECIMAL_EXACT_AGGS:
+        # one cumsum over every 32-bit digit plane, in key order
+        digits = torch.stack(digit_planes(col))
+        if col.validity is not None:
+            digits = torch.where(col.validity, digits, 0)
+        c = torch.cumsum(digits[:, g.order], 1)
+        hi = c[:, g.seg_bounds[1:] - 1]
+        starts = g.seg_bounds[:-1]
+        lo = torch.where(starts > 0, c[:, (starts - 1).clamp(min=0)], 0)
+        sums = (hi - lo)[:, g.appearance]
+        return _decimal_results(col, fn, list(sums), vcount,
+                                functools.cache(lambda: group_ids_of(g)),
+                                g.num_groups)
     if fn == "count":
         return [("count", Column(vcount, dt.int64))]
     if fn == "count_all":
@@ -298,12 +328,10 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
                 validity=gv)))
         return out
     if fn in ("variance", "stddev"):
-        x = masked(sdata.to(torch.float64), 0.0)
-        s1 = segment_sum(x, g, torch.float64, sorted_=srt)
-        s2 = segment_sum(x * x, g, torch.float64, sorted_=srt)
+        # two passes: the group's mean, then its squared deviations
         nv = vcount.to(torch.float64).clamp(min=1)
-        mean = s1 / nv
-        var = (s2 / nv - mean * mean).clamp(min=0.0)
+        d = _deviations(sdata, valid, srt, g, nv)
+        var = segment_sum(d * d, g, torch.float64, sorted_=True) / nv
         out = torch.sqrt(var) if fn == "stddev" else var
         return [(fn, Column(out, dt.float64, validity=gv))]
     if fn in ("first", "last", "one", "first_last"):
@@ -316,7 +344,7 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
             idx = segment_minmax(x, g, is_first, sorted_=srt)
             got = take_column(col, idx.clamp(0, max(n - 1, 0)))
             return Column(got.data, t, validity=gv,
-                          dictionary=got.dictionary)
+                          dictionary=got.dictionary, data2=got.data2)
 
         out = []
         if fn in ("first", "one", "first_last"):
@@ -325,20 +353,16 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
             out.append(("last", pick(False)))
         return out
     if fn in ("skew", "kurtosis"):
-        x = masked(sdata.to(torch.float64), 0.0)
+        # central moments from each row's deviation from its group's mean
         nv = vcount.to(torch.float64).clamp(min=1)
-        s1 = segment_sum(x, g, torch.float64, sorted_=srt)
-        s2 = segment_sum(x * x, g, torch.float64, sorted_=srt)
-        s3 = segment_sum(x * x * x, g, torch.float64, sorted_=srt)
-        mean = s1 / nv
-        m2 = (s2 / nv - mean * mean).clamp(min=0.0)
+        d = _deviations(sdata, valid, srt, g, nv)
+        d2 = d * d
+        m2 = segment_sum(d2, g, torch.float64, sorted_=True) / nv
         if fn == "skew":
-            m3 = s3 / nv - 3 * mean * s2 / nv + 2 * mean ** 3
+            m3 = segment_sum(d2 * d, g, torch.float64, sorted_=True) / nv
             out = m3 / m2.clamp(min=1e-300) ** 1.5
         else:
-            s4 = segment_sum(x ** 4, g, torch.float64, sorted_=srt)
-            m4 = (s4 / nv - 4 * mean * s3 / nv + 6 * mean * mean * s2 / nv
-                  - 3 * mean ** 4)
+            m4 = segment_sum(d2 * d2, g, torch.float64, sorted_=True) / nv
             out = m4 / (m2 * m2).clamp(min=1e-300) - 3.0
         return [(fn, Column(out, dt.float64, validity=vcount >= 2))]
     if fn == "approximate_median":
@@ -347,6 +371,52 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
         raise NotImplementedError_(f"group {fn} {_NESTED}")
     # binary min/max, any/all, count_distinct, product: scatter form
     return _grouped(col, fn, group_ids_of(g), g.num_groups)
+
+
+def _deviations(data, valid, srt: bool, g, nv: torch.Tensor):
+    """Each row's float64 value less its group's mean, in key order (0.0
+    at nulls): the first of the two passes of a grouped variance, skew or
+    kurtosis, which therefore do not cancel (ROADMAP Queue 3, repaired)."""
+    xs = (data if srt else data[g.order]).to(torch.float64)
+    vs = valid if valid is None or srt else valid[g.order]
+    if vs is not None:
+        xs = torch.where(vs, xs, 0.0)
+    mean = segment_sum(xs, g, torch.float64, sorted_=True) / nv
+    # each sorted row's segment (a group of no row is an empty segment)
+    seg = torch.searchsorted(g.seg_bounds[1:], torch.arange(
+        xs.shape[0], device=xs.device), right=True)
+    d = xs - mean[g.appearance_rank[seg]]
+    return d if vs is None else torch.where(vs, d, 0.0)
+
+
+_DECIMAL_FLOAT_AGGS = frozenset(["variance", "stddev", "approximate_median",
+                                 "skew", "kurtosis"])
+_DECIMAL_EXACT_AGGS = frozenset(["sum", "mean", "min", "max", "min_max"])
+
+
+def _decimal_results(col: Column, fn: str, digit_sums, vcount, gids,
+                     ngroups: int):
+    """A grouped decimal sum (decimal128(38, s) or decimal256(76, s), as
+    pyarrow's), mean (the input type, rounded half away from zero, as
+    pyarrow's; the JAX package gives decimal128(38, s)), min or max, from
+    the per-group digit sums (sum, mean) or group ids (a tensor or a
+    function that makes one: min, max)."""
+    t = col.dtype
+    gv = vcount > 0
+    if fn == "sum":
+        return [("sum", pack(limbs_from_digit_sums(digit_sums),
+                             decimal_sum_type(t), gv))]
+    if fn == "mean":
+        total = limbs_from_digit_sums(digit_sums)
+        return [("mean", pack(mean_limbs(total, vcount.clamp(min=1)), t,
+                              gv))]
+    ids = gids() if callable(gids) else gids
+    out = []
+    for name, is_min in (("min", True), ("max", False)):
+        if fn in (name, "min_max"):
+            out.append((name, pack(group_extreme(col, ids, ngroups, is_min),
+                                   t, gv)))
+    return out
 
 
 def _grouped_median(col: Column, g) -> Column:
@@ -395,10 +465,11 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
         if fn not in _DENSE_AGGS:
             return None
         c = batch.column(col_name)
-        if c.data2 is not None or c.dictionary is not None:
+        if c.dictionary is not None or (c.data2 is not None and
+                                        not c.dtype.is_decimal):
             return None
         if fn in ("sum", "mean"):
-            if not c.dtype.is_integer:
+            if not (c.dtype.is_integer or c.dtype.is_decimal):
                 return None
             if col_name not in vals_needed:
                 vals_needed.append(col_name)
@@ -418,8 +489,9 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
                torch.where(kvalid, kd, -(1 << 62)).max(),
                kvalid.any().to(torch.int64)]
     # a mean's column range says whether its int64 sum can wrap
-    mean_cols = list(dict.fromkeys(c for c, fn in aggregates
-                                   if fn == "mean"))
+    mean_cols = list(dict.fromkeys(
+        c for c, fn in aggregates
+        if fn == "mean" and not batch.column(c).dtype.is_decimal))
     for nm in mean_cols:
         red.extend(torch.aminmax(as_int64(batch.column(nm).data)))
     kmin, kmax, any_valid_key, *ranges = torch.stack(red).tolist()
@@ -434,6 +506,11 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
     if kvalid is not None:
         gid = torch.where(kvalid, gid, R)
 
+    # an integer column rides K3 as itself, a decimal as the 32-bit digit
+    # planes of its limbs, whose sums cannot wrap (``digit_planes``)
+    decimals = [nm for nm in vals_needed
+                if batch.column(nm).dtype.is_decimal]
+    vals_needed = [nm for nm in vals_needed if nm not in decimals]
     cols = [(as_int64(batch.column(nm).data), batch.column(nm).validity)
             for nm in vals_needed]
     # a mean whose sum can wrap adds its column's high words (their sum
@@ -446,10 +523,16 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
     cnt_only = []   # count-only columns not already carried
     for col_name, fn in aggregates:
         if fn == "count" and col_name not in vals_needed and \
-                col_name not in cnt_only:
+                col_name not in cnt_only and col_name not in decimals:
             cnt_only.append(col_name)
             cols.append((None, batch.column(col_name).validity))
-    names = vals_needed + [f"{nm}#hi" for nm in wide] + cnt_only
+    for nm in decimals:
+        c = batch.column(nm)
+        cols.extend((d, c.validity) for d in digit_planes(c))
+    # a decimal's count is its first digit plane's
+    names = vals_needed + [f"{nm}#hi" for nm in wide] + cnt_only + \
+        [nm if j == 0 else f"{nm}#d{j}" for nm in decimals
+         for j in range(2 * batch.column(nm).dtype.limbs)]
     col_index = {nm: i for i, nm in enumerate(names)}
 
     occ, results = segment_sums(gid, cols, G)
@@ -459,8 +542,15 @@ def _dense_key_group_by(batch: RecordBatch, keys: Sequence[str],
     for col_name, fn in aggregates:
         cnt, s = results[col_index[col_name]]
         cnt_g = cnt[idx]
+        c = batch.column(col_name)
         if fn == "count":
             out_cols.append(Column(cnt_g, dt.int64))
+        elif c.dtype.is_decimal:
+            sums = [results[col_index[col_name if j == 0 else
+                                      f"{col_name}#d{j}"]][1][idx]
+                    for j in range(2 * c.dtype.limbs)]
+            out_cols.append(_decimal_results(c, fn, sums, cnt_g, None,
+                                             0)[0][1])
         elif fn == "sum":
             out_t = _sum_output_type(batch.column(col_name).dtype)
             out_cols.append(Column(_as_type(s[idx], out_t), out_t,

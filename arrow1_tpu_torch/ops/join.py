@@ -9,7 +9,8 @@ probe (left) order, and each probe's matches in build (right) order.
 1. A single non-float key column joins on its raw normalized u64 key
    (``normalize_sort_key``'s total-order bits) through the bucketed hash
    table (kernels/hashtable.py): one build-side sort and a gather probe.
-   Every other key (floats, several columns) collapses to one dense id
+   Every other key (floats, decimals, several columns; a decimal key is
+   its limbs, both sides at their common type) collapses to one dense id
    per row by grouping the union of both sides' key planes
    (``ops/hash.grouping_by_keys``), and the ids meet in the merged
    sort-merge probe (``ops/padded.probe_ranges_sortmerge``). In a join,
@@ -38,6 +39,7 @@ from ..kernels.hashtable import (MAX_BITS, join_build, join_probe,
 from ..kernels.radix import _SIGN, sort_permutation
 from ..table import RecordBatch
 from .common import collapse_validity
+from .decimal import common_decimal_type, decimal_cast
 from .dictionary import unify_pair
 from .hash import grouping_by_keys
 from .padded import last_marked, probe_ranges_sortmerge
@@ -62,6 +64,10 @@ def key_planes(lc: Column, rc: Column):
         raise Invalid(f"join: key type mismatch {lc.dtype} vs {rc.dtype}")
     if lc.dtype.is_binary and lc.dictionary is not rc.dictionary:
         lc, rc = unify_pair(lc, rc)
+    if lc.dtype.is_decimal and lc.dtype != rc.dtype:   # one scale, width
+        t = common_decimal_type([lc.dtype, rc.dtype])
+        lc, rc = (decimal_cast(c, t, allow_truncate=False, check_range=False)
+                  for c in (lc, rc))
     lkeys = normalize_sort_key(lc)
     rkeys = normalize_sort_key(rc)
     if len(lkeys) < len(rkeys):
@@ -93,10 +99,10 @@ def _key_ids(left: RecordBatch, right: RecordBatch,
     if len(left_keys) != len(right_keys):
         raise Invalid("join: key count mismatch")
     pairs = []   # (plane over both sides, bits) for grouping_by_keys
-    n_float = 0
+    n_float = 0   # keys of more than one plane: floats, decimals
     for lk, rk in zip(left_keys, right_keys):
         lc = left.column(lk)
-        n_float += lc.dtype.is_floating
+        n_float += lc.dtype.is_floating or lc.dtype.is_decimal
         lkeys, rkeys = key_planes(lc, right.column(rk))
         for i, (lp, rp) in enumerate(zip(lkeys, rkeys)):
             # a class plane holds 0 (value), 1 (NaN) or 2 (null)
@@ -234,9 +240,17 @@ def _coalesce(kcol: Column, rcol: Column) -> Column:
         kcol, rcol = unify_pair(kcol, rcol)
     kmask = kcol.mask()
     data = torch.where(kmask, kcol.data, rcol.data)
+    data2 = None
+    if kcol.data2 is not None:   # every limb of a decimal key
+        if rcol.dtype != kcol.dtype:
+            rcol = decimal_cast(rcol, kcol.dtype, allow_truncate=False,
+                                check_range=False)
+            data = torch.where(kmask, kcol.data, rcol.data)
+        data2 = torch.where(kmask if kcol.data2.dim() == 1 else
+                            kmask[:, None], kcol.data2, rcol.data2)
     validity = kmask | rcol.mask()
     return Column(data, kcol.dtype, validity=collapse_validity(validity),
-                  dictionary=kcol.dictionary)
+                  dictionary=kcol.dictionary, data2=data2)
 
 
 def _take(col: Column, idx, validity) -> Column:

@@ -13,7 +13,9 @@ so values past 2^53 stay exact. Every divisor is a tensor on the
 dividend's device: CUDA divides by a Python number (or a CPU scalar) as a
 product with its reciprocal, which rounds differently. Transcendental results may differ from
 the reference's by a few ulps (different libm); the tests state the
-bound.
+bound. A decimal goes to float64 for the float functions
+(``decimal_to_float``), and rounds exactly in its own type
+(ops/decimal.py).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from ..errors import Invalid
 from ..registry import register_function
 from .arithmetic import _raise_if
 from .cast import convert
+from .decimal import (as_float_operand, decimal_round,
+                      decimal_round_to_multiple)
 from .common import column_device, intersect_validity, result_column, \
     unpack
 
@@ -55,7 +59,7 @@ class RoundBinaryOptions:
 
 def _float_unary(name, fn, bad=None, message=""):
     def exec_fn(args, options, ctx):
-        (a,) = args
+        (a,) = args = [as_float_operand(x) for x in args]
         t = a.dtype
         if not t.is_numeric:
             raise Invalid(f"{name}: expects numeric")
@@ -110,6 +114,7 @@ def _float_out(args):
 
 def _float_binary(name, fn):
     def exec_fn(args, options, ctx):
+        args = [as_float_operand(x) for x in args]
         out_t = _float_out(args)
         (x, y), validities, n = unpack(args, out_t)
         return result_column(fn(x, y), out_t, intersect_validity(validities),
@@ -124,6 +129,7 @@ register_function("hypot", "scalar", 2)(_float_binary("hypot", torch.hypot))
 
 def _logb_exec(checked):
     def exec_fn(args, options, ctx):
+        args = [as_float_operand(x) for x in args]
         (x, b), validities, n = unpack(args, dt.float64)
         dev = column_device(args)
         x, b = x.to(dev), b.to(dev)
@@ -141,10 +147,14 @@ register_function("logb_checked", "scalar", 2)(_logb_exec(True))
 
 
 def _int_preserving(name, fn):
-    """floor/ceil/trunc: the input's type; integers pass through."""
+    """floor/ceil/trunc: the input's type; integers pass through, a
+    decimal rounds exactly to an integer."""
     def exec_fn(args, options, ctx):
         (a,) = args
         t = a.dtype
+        if t.is_decimal:
+            return decimal_round(a, 0, {"floor": "down", "ceil": "up",
+                                        "trunc": "towards_zero"}[name])
         if not t.is_numeric:
             raise Invalid(f"{name}: expects numeric")
         (x,), validities, n = unpack(args)
@@ -233,6 +243,8 @@ def _round_exec(args, options: RoundOptions, ctx):
     (a,) = args
     options = options or RoundOptions()
     t = a.dtype
+    if t.is_decimal:
+        return decimal_round(a, options.ndigits, options.round_mode)
     if not t.is_numeric:
         raise Invalid("round: expects numeric")
     (x,), validities, n = unpack(args)
@@ -291,6 +303,9 @@ def _round_to_multiple_exec(args, options: RoundToMultipleOptions, ctx):
     (a,) = args
     options = options or RoundToMultipleOptions()
     t = a.dtype
+    if t.is_decimal:
+        return decimal_round_to_multiple(a, options.multiple,
+                                         options.round_mode)
     if not t.is_numeric:
         raise Invalid("round_to_multiple: expects numeric")
     m = float(options.multiple)

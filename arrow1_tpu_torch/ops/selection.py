@@ -124,12 +124,16 @@ def _filter_exec(args, options: FilterOptions, ctx):
         options = FilterOptions()
     selected, mask_validity = _effective_mask(
         mask, options.null_selection_behavior)
-    # layout: (column index, "data" | "data2" | "validity")
+    # layout: (column index, "data" | "data2" | "validity"); a decimal256's
+    # three high limbs ([n, 3]) ride as three 1-D streams
     streams, layout = [], []
     for i, c in enumerate(cols):
         streams.append(c.data)
         layout.append((i, "data"))
-        if c.data2 is not None:   # an interval's nanoseconds
+        if c.data2 is not None and c.data2.dim() == 2:
+            streams.extend(c.data2.t().contiguous().unbind(0))
+            layout.extend([(i, "data2")] * c.data2.shape[1])
+        elif c.data2 is not None:   # an interval's ns, a decimal's limb
             streams.append(c.data2)
             layout.append((i, "data2"))
         if c.validity is not None:
@@ -141,8 +145,14 @@ def _filter_exec(args, options: FilterOptions, ctx):
     outs, count = compact(selected, streams)
     count = int(count)   # the one host sync: it sizes the result
     moved = {"data": {}, "data2": {}, "validity": {}}
+    limbs = {}
     for (ci, kind), out in zip(layout, outs):
-        moved[kind][ci] = out[:count]
+        if kind == "data2" and cols[ci].data2.dim() == 2:
+            limbs.setdefault(ci, []).append(out[:count])
+        else:
+            moved[kind][ci] = out[:count]
+    for ci, planes in limbs.items():
+        moved["data2"][ci] = torch.stack(planes, 1)
     data, valid = moved["data"], moved["validity"]
     out_cols = []
     for i, c in enumerate(cols):
@@ -246,8 +256,14 @@ def _scatter_exec(args, options: ScatterOptions, ctx):
     zero = torch.zeros((), dtype=values.data.dtype, device=dev)
     data = torch.where(filled, values.data[pick], zero) if values.length \
         else torch.zeros(size, dtype=values.data.dtype, device=dev)
+    data2 = None
+    if values.data2 is not None:   # a decimal's limbs, an interval's ns
+        d2 = values.data2[pick] if values.length else torch.zeros(
+            (size, *values.data2.shape[1:]), dtype=torch.int64, device=dev)
+        data2 = torch.where(filled if d2.dim() == 1 else filled[:, None],
+                            d2, 0)
     return Column(data, values.dtype, validity=filled,
-                  dictionary=values.dictionary)
+                  dictionary=values.dictionary, data2=data2)
 
 
 register_function("scatter", "vector", 2, ScatterOptions)(_scatter_exec)

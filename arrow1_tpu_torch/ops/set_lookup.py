@@ -19,6 +19,7 @@ match a null member.
 from __future__ import annotations
 
 import dataclasses
+import decimal
 from typing import Any
 
 import numpy as np
@@ -107,8 +108,39 @@ def _temporal_storage(v, t: dt.DataType) -> int:
     return pa.array([v], type=dt.to_arrow(t)).view(storage)[0].as_py()
 
 
+def _lookup_decimal(col: Column, options: SetLookupOptions):
+    """A decimal column against each distinct member of the (host) value
+    set, every limb compared; a member finer than the column's scale
+    matches nothing (reference ``_lookup_decimal``)."""
+    from .decimal import column_limbs
+    from .decimal256 import const_limbs
+
+    vals = _value_set_list(options.value_set)
+    found = torch.zeros(col.length, dtype=torch.bool, device=col.device)
+    set_index = torch.zeros(col.length, dtype=torch.int32,
+                            device=col.device)
+    limbs = column_limbs(col)
+    ctx = decimal.Context(prec=100)
+    seen = set()
+    for i, v in enumerate(vals):
+        if v is None or v in seen:
+            continue
+        seen.add(v)
+        u = decimal.Decimal(v).scaleb(col.dtype.scale, ctx)
+        if u != u.to_integral_value(context=ctx):
+            continue
+        eq = found.new_ones(())
+        for x, w in zip(limbs, const_limbs(int(u), len(limbs))):
+            eq = eq & (x == w)
+        set_index = torch.where(eq & ~found, i, set_index)
+        found = found | eq
+    return found, set_index, any(v is None for v in vals)
+
+
 def _lookup(col: Column, options: SetLookupOptions):
     """(found, position in the value set) per row."""
+    if col.dtype.is_decimal:
+        return _lookup_decimal(col, options)
     x, members, pos, has_null, nan_pos = _members(col, options.value_set)
     if members.shape[0]:
         loc = torch.searchsorted(members, x).clamp(max=members.shape[0] - 1)

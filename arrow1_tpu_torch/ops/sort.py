@@ -33,8 +33,8 @@ import torch
 from .. import dtypes as dt
 from ..column import Column
 from ..errors import Invalid
-from ..kernels.radix import (_SIGN, minimal_sort_keys, pack_operands,
-                             pack_split, sort_permutation)
+from ..kernels.radix import (_SIGN, decimal_limb_keys, minimal_sort_keys,
+                             pack_operands, pack_split, sort_permutation)
 from ..registry import register_function
 from ..table import RecordBatch
 
@@ -100,7 +100,8 @@ def _float_orderable_bits(x: torch.Tensor) -> torch.Tensor:
 
 def normalize_sort_key(col: Column, order: str = "ascending"
                        ) -> List[torch.Tensor]:
-    """1-2 unsigned 64-bit keys, most significant first."""
+    """1-2 unsigned 64-bit keys, most significant first (a decimal: one a
+    limb, after its null class)."""
     t = col.dtype
     has_nan = False
     if t.is_binary:
@@ -117,6 +118,14 @@ def normalize_sort_key(col: Column, order: str = "ascending"
         key = col.data.to(torch.int64)
     elif t.is_signed_integer or t.is_temporal:   # signed storage
         key = col.data.to(torch.int64) ^ _SIGN
+    elif t.is_decimal:   # one key a limb, most significant first
+        keys = decimal_limb_keys(col)
+        if order == "descending":
+            keys = [~k for k in keys]
+        if col.validity is None:
+            return keys
+        return [torch.where(col.validity, 0, 2).to(torch.int64)] + \
+            [torch.where(col.validity, k, 0) for k in keys]
     else:
         raise Invalid(f"sort: unsupported type {t}")
     if order == "descending":

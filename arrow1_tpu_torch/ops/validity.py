@@ -26,6 +26,7 @@ from ..registry import register_function
 from .cast import convert
 from .common import broadcast_length, column_device, result_column, \
     unpack, value_of
+from .decimal import common_decimal_type, decimal_planes, decimal_where
 from .dictionary import one_pool
 
 __all__ = ["NullOptions"]
@@ -99,6 +100,16 @@ def _fill_null_exec(args, options, ctx):
     if values.validity is None:
         return values
     keep = values.validity
+    if values.dtype.is_decimal:   # every limb, the fill rescaled
+        if isinstance(fill, Scalar) and not fill.is_valid:
+            return values
+        lo, hi = decimal_planes(fill, values.dtype, values.length,
+                                values.device)
+        data, data2 = decimal_where(keep, (values.data, values.data2),
+                                    (lo, hi), values.dtype)
+        validity = keep | fill.validity if isinstance(fill, Column) and \
+            fill.validity is not None else None
+        return Column(data, values.dtype, validity=validity, data2=data2)
     if isinstance(fill, Column):
         if values.dtype.is_binary:
             vc, fc = one_pool([values, fill], values.length, values.device)
@@ -171,14 +182,23 @@ def _if_else_exec(args, options, ctx):
     n = broadcast_length(args)
     dev = column_device(args)
     c = value_of(cond).to(dev)
-    dictionary = None
-    if out_t.is_binary:
+    dictionary = data2 = None
+    if out_t.is_decimal:
+        out_t = common_decimal_type([left.dtype, right.dtype])
+        c = c.expand(n or 1)
+        lv, l2 = decimal_planes(left, out_t, n or 1, dev)
+        rv, r2 = decimal_planes(right, out_t, n or 1, dev)
+        data, data2 = decimal_where(c, (lv, l2), (rv, r2), out_t)
+        if n is None:
+            raise Invalid("if_else: decimal scalars need an array argument")
+    elif out_t.is_binary:
         lc, rc = one_pool([left, right], n or 1, dev)
         lv, rv, dictionary = lc.data, rc.data, lc.dictionary
     else:
         lv = value_of(left, out_t).to(dev)
         rv = value_of(right, out_t).to(dev)
-    data = torch.where(c, lv, rv)
+    if data2 is None:
+        data = torch.where(c, lv, rv)
     vc, vl, vr = (_validity_of(a) for a in args)
     validity = None
     if vl is not None or vr is not None:
@@ -190,7 +210,10 @@ def _if_else_exec(args, options, ctx):
         validity = None if validity is None else bool(validity)
         return Scalar(data, out_t, is_valid=validity is not False,
                       dictionary=dictionary)
-    return result_column(data, out_t, validity, n, dictionary=dictionary)
+    out = result_column(data, out_t, validity, n, dictionary=dictionary)
+    if data2 is not None:
+        out.data2 = data2
+    return out
 
 
 register_function("if_else", "scalar", 3)(_if_else_exec)

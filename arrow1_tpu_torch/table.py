@@ -3,8 +3,8 @@ named equal-length Columns on one device, the unit every kernel runs on;
 Table, a host-side sequence of same-schema RecordBatches that the query
 layer streams batch by batch; ChunkedColumn, one column of a Table.
 
-List columns and two-limb decimals (``data2``) wait for the nested and
-decimal slices; ``concat_columns`` carries ``data2`` through unchanged.
+List columns wait for the nested slice; ``concat_columns`` carries
+``data2`` (an interval's nanoseconds, a decimal's high limbs) along.
 """
 
 from __future__ import annotations

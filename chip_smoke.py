@@ -142,7 +142,17 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    numpy), whose K2 launches are counted and must be above 0; and
    assume_timezone -> hour/is_dst/local_timestamp at TEMPORAL_ROWS with
    the zone's offset table on the card;
-17. takes each probe's, its library call's and the empty kernel's device
+17. runs the decimal slice (arrow1_tpu_torch/compute_decimal.py: one
+   call of each decimal dispatch point) once each on the card over
+   DECIMAL_ROWS-row columns from a seed (decimal128(15, 2), (38, 10)
+   across the 2^64 limb boundary, decimal256(60, 6)), each timed and held
+   against the same call on CPU tensors over the first DECIMAL_WINDOW
+   rows, exactly; then TPC-H Q1 at SF10 over phase 12's line items on
+   DECIMAL(15,2) quantity, price, discount and tax (sum_charge through
+   decimal256), grouped by l_returnflag and by year(l_shipdate), and Q6,
+   each equal to an exact oracle in Python ints, with its K2 (and, by
+   year, K3) launches counted and above 0;
+18. takes each probe's, its library call's and the empty kernel's device
    time per call from torch.profiler's kernel records (PROFILE_CALLS
    calls), last, because the profiler's CUDA tracing may stay attached to
    the process and slow the launches after it; every probe must show its
@@ -1761,6 +1771,290 @@ def phase_temporal(pt, dev, counted, lt, want):
     return launches
 
 
+DECIMAL_ROWS = 10_000_000            # each decimal column's rows
+DECIMAL_WINDOW = 1_000_000           # rows held against the CPU
+Q6_DAYS = (8766, 9131)   # [1994-01-01, 1995-01-01) (TPC-H Q6)
+
+
+def _decimal_lineitem(pt, lt, dev):
+    """Phase 12's line items with TPC-H's DECIMAL(15,2) columns: the same
+    quantities, prices and discounts times 100, exactly (the prices and
+    discounts have two decimals: one rounding of x * 100 gives their
+    cents), and l_tax uniform over 0.00-0.08 (TPC-H 4.2.3) from seed 4;
+    l_shipdate is date32. Returns the Table and the host int64 arrays
+    (flag codes, days, cents) of the oracle."""
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch.ops.decimal import pack
+
+    cents = dt.decimal128(15, 2)
+    whole = {name: torch.cat([b[name].data for b in lt.batches])
+             for name in ("l_quantity", "l_extendedprice", "l_discount",
+                          "l_shipdate_days")}
+    n = whole["l_quantity"].shape[0]
+    hundred = torch.tensor(100.0, dtype=torch.float64, device=dev)
+    ints = {"l_quantity": whole["l_quantity"] * 100,
+            "l_extendedprice": torch.round(whole["l_extendedprice"]
+                                           * hundred).to(torch.int64),
+            "l_discount": torch.round(whole["l_discount"]
+                                      * hundred).to(torch.int64),
+            "l_tax": torch.from_numpy(np.random.default_rng(4).integers(
+                0, 9, n)).to(dev)}
+    decs = {k: pack([v, v >> 63], cents, None) for k, v in ints.items()}
+    days32 = whole["l_shipdate_days"].to(torch.int32)
+    flags = torch.cat([b["l_returnflag"].data for b in lt.batches])
+    host = {k: v.cpu().numpy() for k, v in ints.items()}
+    host["days"] = whole["l_shipdate_days"].cpu().numpy()
+    host["flag"] = flags.cpu().numpy()
+    flag = lt.batches[0]["l_returnflag"]
+    batches, at = [], 0
+    for b in lt.batches:
+        k = b.num_rows
+        cols = [pt.Column(flags[at:at + k], flag.dtype,
+                          dictionary=flag.dictionary),
+                pt.Column(days32[at:at + k], dt.date32)]
+        cols += [decs[name].slice(at, k) for name in
+                 ("l_quantity", "l_extendedprice", "l_discount", "l_tax")]
+        batches.append(pt.RecordBatch(tuple(cols), (
+            "l_returnflag", "l_shipdate", "l_quantity", "l_extendedprice",
+            "l_discount", "l_tax")))
+        at += k
+    return pt.Table(batches), host, flag.dictionary.values
+
+
+def _group_sums(idx, ngroups, cols):
+    """Exact per-group int64 sums of each array in ``cols`` (a sort, then
+    np.add.reduceat: no float on the way) and the counts."""
+    order = np.argsort(idx, kind="stable")
+    counts = np.bincount(idx, minlength=ngroups)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    present = counts > 0
+    out = {}
+    for name, col in cols.items():
+        sums = np.zeros(ngroups, dtype=np.int64)
+        sums[present] = np.add.reduceat(col[order], starts[present])
+        out[name] = [int(x) for x in sums]
+    return out, counts
+
+
+def _half_away(num: int, den: int) -> int:
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return -q if num < 0 else q
+
+
+def _decimal_oracles(host, pool):
+    """Q1 (by flag, by year) and Q6 in Python ints from the int64 cents:
+    each product fits int64 (at most 1.08e9 a row at scale 6, 6.5e16 a
+    sum), the means rounded half away from zero as pyarrow rounds them.
+    Each is {column: [unscaled ints]} in the query's group order."""
+    days = host["days"]
+    keep = days <= Q1_CUTOFF
+    qty, price = host["l_quantity"][keep], host["l_extendedprice"][keep]
+    disc, tax = host["l_discount"][keep], host["l_tax"][keep]
+    disc_price = price * (100 - disc)
+    cols = {"l_quantity_sum": qty, "l_extendedprice_sum": price,
+            "disc_price_sum": disc_price,
+            "charge_sum": disc_price * (100 + tax), "l_discount_sum": disc}
+    year = days[keep].astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+    years, year_idx = np.unique(year, return_inverse=True)
+    out = {}
+    for label, idx, keys, key_name in (
+            ("by flag", host["flag"][keep], list(pool), "l_returnflag"),
+            ("by year", year_idx, years.tolist(), "l_year")):
+        sums, counts = _group_sums(idx, len(keys), cols)
+        present = [g for g in range(len(keys)) if counts[g]]
+        want = {k: [v[g] for g in present] for k, v in sums.items()
+                if k != "l_discount_sum"}
+        for c in ("l_quantity", "l_extendedprice", "l_discount"):
+            want[f"{c}_mean"] = [_half_away(sums[f"{c}_sum"][g],
+                                            int(counts[g]))
+                                 for g in present]
+        want["l_quantity_count"] = [int(counts[g]) for g in present]
+        want[key_name] = [keys[g] for g in present]
+        out[label] = want
+    sel = (days >= Q6_DAYS[0]) & (days < Q6_DAYS[1]) & \
+        (host["l_discount"] >= 5) & (host["l_discount"] <= 7) & \
+        (host["l_quantity"] < 2400)
+    out["Q6"] = int((host["l_extendedprice"][sel]
+                     * host["l_discount"][sel]).sum())
+    return out
+
+
+_Q1_DECIMAL_AGGS = [("l_quantity", "sum"), ("l_extendedprice", "sum"),
+                    ("disc_price", "sum"), ("charge", "sum"),
+                    ("l_quantity", "mean"), ("l_extendedprice", "mean"),
+                    ("l_discount", "mean"), ("l_quantity", "count")]
+
+
+def _check_decimal_q1(pt, out, want, label):
+    """Every column of a Q1 batch equal to the oracle: decimals by their
+    unscaled integers (exactly), and their types (the sums pyarrow's
+    decimal128(38, s) / decimal256(76, s), the means the input type)."""
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch.column import unscaled_ints
+
+    types = {"l_quantity_sum": dt.decimal128(38, 2),
+             "disc_price_sum": dt.decimal128(38, 4),
+             "charge_sum": dt.decimal256(76, 6),
+             "l_discount_mean": dt.decimal128(15, 2)}
+    for name, values in want.items():
+        col = out[name]
+        if name in types and col.dtype != types[name]:
+            raise AssertionError(f"Q1 decimal {label}: {name} is "
+                                 f"{col.dtype}, not {types[name]}")
+        got = unscaled_ints(col) if col.dtype.is_decimal else \
+            col.to_pylist()
+        if got != list(values):
+            raise AssertionError(f"Q1 decimal {label}: {name} {got[:4]} "
+                                 f"!= the oracle's {list(values)[:4]}")
+
+
+def phase_decimal(pt, dev, counted, lt):
+    """The decimal slice on the card (phase 17). Part 1: each call of
+    ``arrow1_tpu_torch.compute_decimal.CALLS`` once over DECIMAL_ROWS-row
+    columns from a seed (decimal128(15, 2) prices and discounts,
+    decimal128(38, 10) across the 2^64 limb boundary, decimal256(60, 6),
+    1% null), its wall time printed (median of 3 after a checked call),
+    each map call's output held against the same call on CPU tensors over
+    the first DECIMAL_WINDOW rows, each aggregate over the window on
+    both, exactly. Part 2: TPC-H Q1 at SF10 over phase 12's line items
+    with DECIMAL(15,2) quantity, price, discount and tax (the same numbers
+    times 100; tax from its own seed) and a date32 ship date: the filter
+    l_shipdate <= 1998-09-02, sum_disc_price = sum(price * (1 - disc)),
+    sum_charge = sum(cast(price * (1 - disc), decimal256(38, 4)) * (1 +
+    tax)) and the means, grouped by l_returnflag (the sorted path) and by
+    year(l_shipdate) (an int64 key: the dense path, K3), each equal to an
+    exact oracle in Python ints; then Q6 (1994, discount 0.05-0.07,
+    quantity < 24, sum(price * disc)) exactly. Each query's K2 and K3
+    launches of one run are counted (set to 0 before, read after): K2's
+    must be above 0 in each, K3's in the by-year query; its wall (median
+    of 3) and peak device memory are printed. Returns the launches."""
+    from decimal import Decimal
+
+    from arrow1_tpu_torch import compute_decimal as cd
+    from arrow1_tpu_torch import dtypes as dt
+
+    t_phase = time.perf_counter()
+    cols = cd.decimal_columns(DECIMAL_ROWS, dev)
+    window = cd.on_device(cols, "cpu", DECIMAL_WINDOW)
+    window_card = cd.on_device(cols, dev, DECIMAL_WINDOW)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    failures, times = [], {}
+    for label, (_, _, _, kind) in cd.CALLS.items():
+        out = cd.call(label, cols)
+        first = out.columns[0] if isinstance(out, pt.RecordBatch) else out
+        if hasattr(first, "data") and first.data.device.type != "cuda":
+            failures.append(f"{label}: ran on {first.data.device}")
+            continue
+        times[label] = statistics.median(
+            _wall_ms(lambda: cd.call(label, cols))[1] for _ in range(3))
+        ulps = cd.ULPS.get(label, 0)
+        if kind == "map":
+            problem = cd.same_result(out, cd.call(label, window),
+                                     rows=DECIMAL_WINDOW, ulps=ulps)
+        else:
+            problem = cd.same_result(cd.call(label, window_card),
+                                     cd.call(label, window), ulps=ulps)
+        if problem:
+            failures.append(f"{label}: {problem}")
+    del cols, window, window_card
+    calls_s = time.perf_counter() - t_phase - build_s
+    print(f"decimal: {len(times)} calls on the card at {DECIMAL_ROWS} rows, "
+          f"{len(times) - len(failures)} equal to the CPU over the first "
+          f"{DECIMAL_WINDOW} rows (columns built in {build_s:.1f} s, calls "
+          f"and checks {calls_s:.1f} s); card wall ms (median of 3): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in times.items()), flush=True)
+    if failures:
+        raise AssertionError("decimal: " + "; ".join(failures))
+
+    # part 2: Q1 and Q6 at SF10 on DECIMAL(15,2)
+    t0 = time.perf_counter()
+    ld, host, pool = _decimal_lineitem(pt, lt, dev)
+    want = _decimal_oracles(host, pool)
+    del host
+    cents = dt.decimal128(15, 2)
+    one = pt.scalar(Decimal("1.00"), cents)
+    f = pt.field
+    disc_price = pt.call("multiply", [f("l_extendedprice"), pt.call(
+        "subtract", [one, f("l_discount")])])
+    charge = pt.call("multiply", [
+        pt.call("cast", [disc_price], target_type=dt.decimal256(38, 4)),
+        pt.call("add", [one, f("l_tax")])])
+
+    def q1(key):
+        return (pt.query(ld)
+                .filter(f("l_shipdate") <= pt.scalar(Q1_CUTOFF, dt.date32))
+                .project([f("l_returnflag"), f("l_quantity"),
+                          f("l_extendedprice"), f("l_discount"), disc_price,
+                          charge, pt.call("year", [f("l_shipdate")])],
+                         ["l_returnflag", "l_quantity", "l_extendedprice",
+                          "l_discount", "disc_price", "charge", "l_year"])
+                .group_by([key], _Q1_DECIMAL_AGGS)
+                .order_by([(key, "ascending")])
+                .to_batch())
+
+    def q6():
+        t = (pt.query(ld)
+             .filter((f("l_shipdate") >= pt.scalar(Q6_DAYS[0], dt.date32))
+                     & (f("l_shipdate") < pt.scalar(Q6_DAYS[1], dt.date32))
+                     & (f("l_discount") >= pt.scalar(Decimal("0.05"), cents))
+                     & (f("l_discount") <= pt.scalar(Decimal("0.07"), cents))
+                     & (f("l_quantity") < pt.scalar(Decimal("24"), cents)))
+             .project([pt.call("multiply", [f("l_extendedprice"),
+                                            f("l_discount")])], ["revenue"])
+             .to_table())
+        return pt.call_function("sum", [pt.concat_columns(
+            [b["revenue"] for b in t.batches])])
+
+    queries = [("Q1 by l_returnflag", lambda: q1("l_returnflag"),
+                "by flag"),
+               ("Q1 by year(l_shipdate)", lambda: q1("l_year"), "by year"),
+               ("Q6", q6, "Q6")]
+    launches = {kern.__name__: 0 for kern in counted}
+    for label, run, oracle in queries:
+        run()   # warm-up (uncounted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in counted:
+            kern.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        mem = torch.cuda.max_memory_allocated()
+        run_launches = {kern.__name__: kern.launches for kern in counted}
+        for name, count in run_launches.items():
+            launches[name] += count
+        if run_launches["compact"] <= 0:
+            raise AssertionError(f"decimal {label}: the filter launched no "
+                                 "K2")
+        if oracle == "by year" and run_launches["segment_sums"] <= 0:
+            raise AssertionError(f"decimal {label}: the dense group_by "
+                                 "launched no K3")
+        if oracle == "Q6":
+            if out.dtype != dt.decimal128(38, 4) or \
+                    out.value != want["Q6"]:
+                raise AssertionError(f"decimal Q6: {out!r} != the oracle's "
+                                     f"{want['Q6']} (scale 4)")
+            groups = 1
+        else:
+            _check_decimal_q1(pt, out, want[oracle], label)
+            groups = out.num_rows
+        walls = [_wall_ms(run)[1] for _ in range(3)]
+        print(f"TPC-H SF10 {label} on DECIMAL(15,2)"
+              + (" (sum_charge in decimal256)" if oracle != "Q6" else "")
+              + f": {groups} groups, equal to the exact oracle; "
+              f"wall {statistics.median(walls):.3f} ms (median of 3), peak "
+              f"device memory {mem / 2**30:.2f} GiB; one run: K2 "
+              f"{run_launches['compact']}, K3 "
+              f"{run_launches['segment_sums']}", flush=True)
+        del out
+    print(f"decimal: Q1/Q6 part {time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+
 def phase_probe_device_times(device_calls, rows):
     """Device time per call of each probe, of its library call and of the
     empty kernel behind the same operator path, from torch.profiler's
@@ -1883,7 +2177,8 @@ class _CallCounter:
 
 def phase_sf10(pt, dev, peak, counted):
     """The query layer at TPC-H SF10 cardinalities. Returns the launch
-    counts of the counted runs, the lineitem Table (phase 16 reuses it)
+    counts of the counted runs, the lineitem Table (phases 16 and 17
+    reuse it)
     and the numpy oracles."""
     import arrow1_tpu_torch.ops.join as ops_join
     import arrow1_tpu_torch.profile_main_path as pm
@@ -2248,6 +2543,11 @@ def main() -> int:
                                        sf10_want)
     print(f"temporal main path launches: {temporal_launches}", flush=True)
     for kname, count in temporal_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    decimal_launches = phase_decimal(pt, dev, all_kernels, sf10_lineitem)
+    print(f"decimal main path launches: {decimal_launches}", flush=True)
+    for kname, count in decimal_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     del sf10_lineitem
     torch.cuda.empty_cache()

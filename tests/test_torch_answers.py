@@ -5,7 +5,9 @@ The JAX package compiles every operation on first use and shape, so a
 file's answers cost seconds of compiling, most of it under the interpreter
 lock. Each file of ``MODULES`` defines ``reference_answers()`` (no
 arguments, the answers as a dict) and takes them in its module fixture
-with ``answers_of(__name__)``. The first fixture that asks (the first
+with ``answers_of(__name__)``; a file whose answers take long may split
+them into parts (``reference_answers(part)``, listed as ``module:part``),
+which run in workers of their own. The first fixture that asks (the first
 port test file's, ``test_torch_compaction``, calls ``start`` itself)
 starts a pool of spawned processes that computes the answers of every
 file of ``MODULES`` this test run has imported, in run order, while the
@@ -33,10 +35,12 @@ copyreg.pickle(_jax_column.Dictionary,
                lambda d: (_jax_column.Dictionary, (d.values,)))
 
 # the files whose answers the workers compute, in the order they run
-MODULES = ("test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
-           "test_torch_join", "test_torch_pipeline", "test_torch_port_faults",
-           "test_torch_query", "test_torch_registry_sweep",
-           "test_torch_strings", "test_torch_tail", "test_torch_temporal")
+MODULES = ("test_torch_decimal:0", "test_torch_decimal:1",
+           "test_torch_decimal:2", "test_torch_fused", "test_torch_groupby",
+           "test_torch_hashtable", "test_torch_join", "test_torch_pipeline",
+           "test_torch_port_faults", "test_torch_query",
+           "test_torch_registry_sweep", "test_torch_strings",
+           "test_torch_tail", "test_torch_temporal")
 # a few workers beside the test process: the answers of all files take
 # about a minute of one core
 WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))
@@ -48,8 +52,17 @@ _futures = {}
 _pool = {}
 
 
-def _answers(module_name: str) -> dict:
-    return importlib.import_module(module_name).reference_answers()
+def _answers(key: str) -> dict:
+    """A key's answers: a module's, or of ``module:part`` the part's
+    (``reference_answers(part)``)."""
+    name, _, part = key.partition(":")
+    module = importlib.import_module(name)
+    return module.reference_answers(int(part)) if part else \
+        module.reference_answers()
+
+
+def _keys(module_name: str):
+    return [k for k in MODULES if k.partition(":")[0] == module_name]
 
 
 def start() -> None:
@@ -57,7 +70,7 @@ def start() -> None:
     MODULES that this test run imported (once)."""
     if _futures or multiprocessing.parent_process() is not None:
         return
-    names = [m for m in MODULES if m in sys.modules]
+    names = [m for m in MODULES if m.partition(":")[0] in sys.modules]
     try:
         pool = ProcessPoolExecutor(
             WORKERS, mp_context=multiprocessing.get_context("spawn"))
@@ -83,10 +96,17 @@ def _stop_workers() -> None:
 
 
 def answers_of(module_name: str) -> dict:
-    """``module_name``'s answers from its worker if they come before the
-    run's deadline, or computed here."""
+    """``module_name``'s answers (all its parts') from the workers where
+    they come before the run's deadline, or computed here."""
     start()
-    future = _futures.get(module_name)
+    out = {}
+    for key in _keys(module_name) or [module_name]:
+        out.update(_answer(key))
+    return out
+
+
+def _answer(key: str) -> dict:
+    future = _futures.get(key)
     if future is not None and "pool" in _pool:
         try:
             return future.result(
@@ -95,4 +115,4 @@ def answers_of(module_name: str) -> dict:
             _stop_workers()
         except Exception:   # noqa: BLE001 (computed here instead)
             pass
-    return _answers(module_name)
+    return _answers(key)

@@ -162,11 +162,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_later_slice_types_raise():
-    for kind in ("decimal128", "list", "struct"):
+    for kind in ("list", "struct"):
         with pytest.raises(NotImplementedError_):
             dt.DataType(kind)
     with pytest.raises(NotImplementedError_):
-        dt.from_arrow(pa.decimal128(10, 2))
+        dt.from_arrow(pa.list_(pa.int64()))
+    # decimals are types of the port since the decimal slice
+    assert pt.decimal128(15, 2) == dt.from_arrow(pa.decimal128(15, 2))
+    assert dt.to_arrow(pt.decimal256(76, 0)) == pa.decimal256(76, 0)
+    assert pt.decimal128(15, 2).physical_dtype() == torch.int64
     assert dt.timestamp("us", "UTC").physical_dtype() == torch.int64
     assert dt.date32.physical_dtype() == torch.int32
     assert dt.from_numpy_dtype(np.float32) == dt.float32

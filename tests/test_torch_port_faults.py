@@ -518,3 +518,109 @@ def test_eager_and_compiled_group_by_agree_on_nan(ty):
     for name in names:
         assert _same(eager[name], want[name]), name
         assert _same(compiled[name], want[name]), name
+
+
+# ---- the two aggregate faults shared with the JAX package (ROADMAP Queue
+# 3, faults 1-2): pyarrow's answers, hard-coded -------------------------
+
+SKIP_NULLS_INPUT = [1.0, None, 3.0]
+# function -> pyarrow's answer with skip_nulls=False (as_py)
+SKIP_NULLS_FALSE = {
+    "sum": None, "mean": None, "min": None, "max": None, "product": None,
+    "variance": None, "stddev": None, "approximate_median": None,
+    "skew": None, "kurtosis": None,
+    "min_max": {"min": None, "max": None},
+    "quantile": [None], "tdigest": [None], "mode": [],
+}
+# (values, function) -> pyarrow's answer: Kleene logic for any/all, and
+# min_count read as pyarrow reads it
+BOOL_AND_MIN_COUNT = [
+    ([True, None], "all", {"skip_nulls": False}, None),
+    ([True, None], "any", {"skip_nulls": False}, True),
+    ([False, None], "any", {"skip_nulls": False}, None),
+    ([False, None], "all", {"skip_nulls": False}, False),
+    ([1.0, 2.0, 3.0], "sum", {"skip_nulls": False, "min_count": 5}, None),
+    ([None, None], "sum", {"min_count": 0}, 0.0),
+    ([None, None], "product", {"min_count": 0}, 1.0),
+    ([1.0, None, 3.0], "sum", {}, 4.0),
+]
+
+
+def _agg_py(out):
+    if hasattr(out, "to_pylist"):   # quantile/tdigest columns
+        return out.to_pylist()
+    if isinstance(out, pt.RecordBatch):   # min_max, mode
+        rows = out.to_arrow().to_pylist()
+        return rows[0] if out.names == ("min", "max") else rows
+    return out.as_py()
+
+
+@pytest.mark.parametrize("fn", list(SKIP_NULLS_FALSE))
+def test_skip_nulls_false_gives_nulls_like_pyarrow(fn):
+    """float64 [1.0, null, 3.0] with skip_nulls=False: null (mode: no
+    row), as pyarrow gives; the JAX package ignored the option (sum 4.0,
+    mean 2.0, ...)."""
+    col = pt.interop.column_from_arrow(pa.array(SKIP_NULLS_INPUT),
+                                       device="cpu")
+    got = _agg_py(pt.call_function(fn, [col], skip_nulls=False))
+    assert got == SKIP_NULLS_FALSE[fn], (fn, got)
+    # and with the nulls skipped, a value
+    kept = _agg_py(pt.call_function(fn, [col]))
+    assert kept not in (None, [None], {"min": None, "max": None}, []), fn
+
+
+@pytest.mark.parametrize("values,fn,options,want", BOOL_AND_MIN_COUNT)
+def test_any_all_and_min_count_follow_pyarrow(values, fn, options, want):
+    col = pt.interop.column_from_arrow(pa.array(
+        values, pa.bool_() if fn in ("any", "all") else pa.float64()),
+        device="cpu")
+    assert pt.call_function(fn, [col], **options).as_py() == want
+
+
+# k = [1, 1, 1], v = [1e9+1, 1e9+2, 1e9+3]: pyarrow's variance 2/3; s2/n -
+# mean^2 cancels to 0.0. A second group of large values checks skew and
+# kurtosis from central moments.
+VAR_BATCH = pa.record_batch({
+    "k": pa.array([1, 1, 1, 2, 2, 2, 2]),
+    "v": pa.array([1e9 + 1, 1e9 + 2, 1e9 + 3,
+                   1e12 + 1, 1e12 + 2, 1e12 + 4, 1e12 + 9])})
+# pyarrow's answers, by key 1, 2
+VAR_WANT = {
+    "v_variance": [0.6666666666666666, 9.5],
+    "v_stddev": [0.816496580927726, 3.082207001484488],
+    "v_skew": [0.0, 0.7684172579878226],
+    "v_kurtosis": [-1.5, -1.0],
+}
+
+
+@pytest.mark.parametrize("path", ["eager", "hash", "compiled", "int-key"])
+def test_grouped_variance_does_not_cancel(path):
+    """The grouped variance and stddev take two passes (the group's mean,
+    then the squared deviations), skew and kurtosis central moments: equal
+    to pyarrow on values near 1e9 and 1e12, where s2/n - mean^2 (both
+    packages before) gives 0.0 and the raw power sums lose every digit."""
+    b = pt.record_batch(VAR_BATCH, device="cpu")
+    fns = ["variance", "stddev", "skew", "kurtosis"]
+    if path in ("eager", "int-key"):
+        keys = ["k"]
+        if path == "int-key":   # an int64 value column: the same moments
+            b = pt.record_batch(pa.record_batch({
+                "k": VAR_BATCH["k"], "v": pa.array(
+                    [int(x) for x in VAR_BATCH["v"].to_pylist()])}),
+                device="cpu")
+        got = _by_key(pt.interop.record_batch_to_arrow(pt.group_by(
+            b, keys, [("v", f) for f in fns])), list(VAR_WANT))
+    elif path == "hash":
+        gids = pt.interop.column_from_arrow(pa.array(
+            [x - 1 for x in VAR_BATCH["k"].to_pylist()], pa.int32()),
+            device="cpu")
+        got = {f"v_{f}": pt.call_function(f"hash_{f}", [b["v"], gids])
+               .to_pylist() for f in fns}
+    else:   # the compiled pipeline has variance and stddev
+        fns = fns[:2]
+        got = _by_key(pt.interop.record_batch_to_arrow(
+            pt.PipelineBuilder().group_by(["k"], [("v", f) for f in fns])
+            .compile()(b)), [f"v_{f}" for f in fns])
+    for name, values in got.items():
+        assert values == pytest.approx(VAR_WANT[name], rel=1e-12,
+                                       abs=1e-12), (path, name, values)
