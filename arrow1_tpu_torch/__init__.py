@@ -14,7 +14,11 @@ numeric cast, the sort tail, element-wise min/max, power/abs/sign,
 bitwise, math, cumulative, conditional, set lookup, run ends, random),
 the strings, the temporal and interval types with the 42 temporal
 functions (a time zone's offsets looked up on the column's device) and
-``tdigest``, a pyarrow.compute-shaped facade (``compute``), and
+``tdigest``, the decimals, the nested types (list, large_list,
+fixed_size_list, map, struct, sparse and dense union columns, the list,
+struct and map functions, the split family, ``binary_join`` and the
+grouped lists, distinct values, quantiles and pivots), a
+pyarrow.compute-shaped facade (``compute``), and
 the query layer: ``Table`` (a sequence of batches), the streaming
 ``ExecPlan`` (``exec``), pyarrow.acero-shaped ``Declaration``s
 (``acero``), ``query()`` and the TPC-H and BASELINE templates
@@ -24,14 +28,16 @@ the kernels of the JAX package's remaining Pallas entry points.
 """
 
 from . import acero, dtypes
-from .column import Column, Dictionary
+from .column import (Column, Dictionary, ListColumn, StructColumn,
+                     UnionColumn, fixed_size_list_column)
 from .datum import Scalar, scalar
 from .dtypes import (DataType, binary, bool_, date32, date64, decimal128,
-                     decimal256, duration,
+                     decimal256, dense_union, duration, fixed_size_list,
                      float16, float32, float64, int8, int16, int32, int64,
-                     large_binary, large_string, month_day_nano_interval,
-                     string, time32, time64, timestamp, uint8, uint16,
-                     uint32, uint64)
+                     large_binary, large_list, large_string, list_, map_,
+                     month_day_nano_interval, sparse_union, string, struct,
+                     time32, time64, timestamp, uint8, uint16, uint32,
+                     uint64)
 from .device import resolve_device
 from .exec.compiled import CompiledPipeline, PipelineBuilder
 from .expr import Expression, call, field, literal
@@ -46,7 +52,10 @@ from .query import Query, query
 from .table import (ChunkedColumn, RecordBatch, Table, concat_batches,
                     concat_columns, record_batch, table)
 
-__all__ = ["acero", "dtypes", "Column", "Dictionary", "Scalar", "scalar", "DataType",
+__all__ = ["acero", "dtypes", "Column", "Dictionary", "ListColumn",
+           "StructColumn", "UnionColumn", "fixed_size_list_column", "Scalar",
+           "scalar", "DataType", "list_", "large_list", "fixed_size_list",
+           "struct", "map_", "sparse_union", "dense_union",
            "binary", "bool_", "float16", "float32", "float64", "int8",
            "int16", "int32", "int64", "large_binary", "large_string",
            "string", "uint8", "uint16", "uint32", "uint64", "date32",

@@ -159,7 +159,12 @@ def same_result(got, want, rows: Optional[int] = None) -> Optional[str]:
     """None when ``got``'s first ``rows`` rows (all by default) equal
     ``want``'s: type, names, nulls and values exactly (strings compare
     their codes when the two pools hold the same values in the same
-    order, else their decoded values); else the first difference."""
+    order, else their decoded values); else the first difference.
+    Struct and list results are compared by ``compute_nested``."""
+    if not isinstance(want, (Column, RecordBatch)):
+        from .compute_nested import same_nested
+
+        return same_nested(got, want, rows)
     gcols, wcols = _columns_of(got), _columns_of(want)
     if len(gcols) != len(wcols):
         return f"{len(gcols)} columns, want {len(wcols)}"

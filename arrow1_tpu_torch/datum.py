@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 from . import dtypes as dt
-from .column import Column, Dictionary
+from .column import (Column, Dictionary, ListColumn, StructColumn,
+                     UnionColumn)
 from .errors import Invalid
 from .table import RecordBatch
 
@@ -100,10 +101,12 @@ def _decimal_scalar(value: decimal.Decimal, type) -> Scalar:
     return Scalar(int(unscaled), type)
 
 
-Datum = Union[Scalar, Column, RecordBatch]
+Datum = Union[Scalar, Column, ListColumn, StructColumn, UnionColumn,
+              RecordBatch]
 
 
 def as_datum(x) -> Datum:
-    if isinstance(x, (Scalar, Column, RecordBatch)):
+    if isinstance(x, (Scalar, Column, ListColumn, StructColumn, UnionColumn,
+                      RecordBatch)):
         return x
     return scalar(x)

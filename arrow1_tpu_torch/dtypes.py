@@ -12,26 +12,31 @@ column's ``data2``. A decimal is its unscaled integer in 64-bit limbs,
 least significant first: ``data`` holds limb 0 (int64 bits) and ``data2``
 the rest, the signed high limb of a decimal128 as int64[n], limbs 1-3 of
 a decimal256 as int64[n, 3] (the top one signed). Validity is an unpacked
-bool tensor. Nested types come with ROADMAP Queue 1 item 9 and raise
-``NotImplementedError_`` here.
+bool tensor. A nested type names its children in ``fields`` ((name,
+type) pairs; a list type's one child is "item", a map's two are "key" and
+"value"), a fixed_size_list its ``list_size`` and a union its
+``type_codes``; its columns are column.ListColumn, StructColumn and
+UnionColumn, which hold no tensor of their own type.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .errors import Invalid, NotImplementedError_
+from .errors import Invalid
 
 __all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
            "uint16", "uint32", "uint64", "float16", "float32", "float64",
            "string", "large_string", "binary", "large_binary", "dictionary",
            "date32", "date64", "timestamp", "time32", "time64", "duration",
            "month_interval", "day_time_interval", "month_day_nano_interval",
-           "decimal128", "decimal256", "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
+           "decimal128", "decimal256", "list_", "large_list", "fixed_size_list",
+           "struct", "map_", "sparse_union", "dense_union",
+           "from_numpy_dtype", "from_arrow", "to_arrow", "as_int64",
            "from_int64"]
 
 _PHYS = {
@@ -58,7 +63,8 @@ _UNITS = {"timestamp": ("s", "ms", "us", "ns"), "time32": ("s", "ms"),
           "time64": ("us", "ns"), "duration": ("s", "ms", "us", "ns")}
 _DECIMAL_KINDS = ("decimal128", "decimal256")
 _MAX_PRECISION = {"decimal128": 38, "decimal256": 76}
-_LATER = "is not ported yet: nested types come with ROADMAP Queue 1 item 9"
+_NESTED_KINDS = ("list", "large_list", "fixed_size_list", "map", "struct",
+                 "sparse_union", "dense_union")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +73,8 @@ class DataType:
     ``dictionary`` type (the result of dictionary_encode) also names its
     index and value types, a timestamp, time or duration its ``unit``
     ("s", "ms", "us" or "ns"), a timestamp its time zone ``tz`` and a
-    decimal its ``precision`` and ``scale``."""
+    decimal its ``precision`` and ``scale``, a nested type its
+    ``fields`` (and ``list_size`` or ``type_codes``)."""
 
     kind: str
     index_type: Optional["DataType"] = None
@@ -76,14 +83,18 @@ class DataType:
     tz: Optional[str] = None
     precision: int = 0
     scale: int = 0
+    fields: Tuple = ()
+    list_size: int = 0
+    type_codes: Tuple = ()
 
     def __post_init__(self):
         if self.kind not in _PHYS and self.kind not in _DICT_KINDS and \
                 self.kind not in _TEMPORAL_KINDS and \
                 self.kind not in _INTERVAL_KINDS and \
                 self.kind not in _DECIMAL_KINDS and \
+                self.kind not in _NESTED_KINDS and \
                 self.kind != "dictionary":
-            raise NotImplementedError_(f"type {self.kind!r} {_LATER}")
+            raise TypeError(f"unknown type kind {self.kind!r}")
         if self.kind in _UNITS and self.unit not in _UNITS[self.kind]:
             raise ValueError(f"{self.kind}: bad unit {self.unit!r}")
         if self.kind in _DECIMAL_KINDS and not \
@@ -143,9 +154,20 @@ class DataType:
         """An explicit dictionary type: codes into a host value pool."""
         return self.kind == "dictionary"
 
+    @property
+    def is_nested(self) -> bool:
+        return self.kind in _NESTED_KINDS
+
+    @property
+    def value_field(self) -> "DataType":
+        """A list type's item type."""
+        return self.fields[0][1]
+
     def physical_dtype(self) -> torch.dtype:
         """The torch dtype of the column's data tensor (int32 codes for
         dictionary-encoded strings, the index type's for dictionaries)."""
+        if self.is_nested:
+            raise TypeError(f"{self!r} has no single physical dtype")
         if self.is_dictionary:
             return self.index_type.physical_dtype()
         if self.is_temporal or self.is_interval or self.is_decimal:
@@ -154,6 +176,8 @@ class DataType:
 
     def numpy_dtype(self) -> np.dtype:
         """The numpy dtype of the host copy of ``physical_dtype()``."""
+        if self.is_nested:
+            raise TypeError(f"{self!r} has no single physical dtype")
         if self.is_dictionary:
             return self.index_type.numpy_dtype()
         if self.is_temporal or self.is_interval or self.is_decimal:
@@ -171,6 +195,19 @@ class DataType:
             return f"{self.kind}[{self.unit}]"
         if self.is_decimal:
             return f"{self.kind}({self.precision}, {self.scale})"
+        if self.kind in ("list", "large_list"):
+            return f"{self.kind}<{self.fields[0][1]!r}>"
+        if self.kind == "fixed_size_list":
+            return f"fixed_size_list<{self.fields[0][1]!r}>[{self.list_size}]"
+        if self.kind == "map":
+            return f"map<{self.fields[0][1]!r}, {self.fields[1][1]!r}>"
+        if self.kind == "struct":
+            return "struct<" + ", ".join(f"{n}: {t!r}"
+                                         for n, t in self.fields) + ">"
+        if self.is_nested:
+            return f"{self.kind}<" + ", ".join(
+                f"{n}: {t!r}={c}" for (n, t), c in
+                zip(self.fields, self.type_codes)) + ">"
         return self.kind
 
 
@@ -232,6 +269,42 @@ def decimal256(precision: int, scale: int = 0) -> DataType:
     return DataType("decimal256", precision=precision, scale=scale)
 
 
+def list_(value_type: DataType) -> DataType:
+    return DataType("list", fields=(("item", value_type),))
+
+
+def large_list(value_type: DataType) -> DataType:
+    return DataType("large_list", fields=(("item", value_type),))
+
+
+def fixed_size_list(value_type: DataType, list_size: int) -> DataType:
+    return DataType("fixed_size_list", fields=(("item", value_type),),
+                    list_size=list_size)
+
+
+def struct(fields) -> DataType:
+    """``fields``: (name, type) pairs."""
+    return DataType("struct", fields=tuple((n, t) for n, t in fields))
+
+
+def map_(key_type: DataType, item_type: DataType) -> DataType:
+    return DataType("map", fields=(("key", key_type), ("value", item_type)))
+
+
+def _union(kind, fields, type_codes) -> DataType:
+    fields = tuple((n, t) for n, t in fields)
+    codes = tuple(type_codes) if type_codes else tuple(range(len(fields)))
+    return DataType(kind, fields=fields, type_codes=codes)
+
+
+def sparse_union(fields, type_codes=None) -> DataType:
+    return _union("sparse_union", fields, type_codes)
+
+
+def dense_union(fields, type_codes=None) -> DataType:
+    return _union("dense_union", fields, type_codes)
+
+
 def dictionary(index_type: DataType, value_type: DataType) -> DataType:
     return DataType("dictionary", index_type=index_type,
                     value_type=value_type)
@@ -246,7 +319,7 @@ def from_numpy_dtype(np_dtype) -> DataType:
         return DataType(f"{prefix}{8 * d.itemsize}")
     if d.kind in "OUS":
         return string if d.kind != "S" else binary
-    raise NotImplementedError_(f"numpy dtype {d} {_LATER}")
+    raise TypeError(f"unsupported numpy dtype {d}")
 
 
 def from_arrow(pa_type) -> DataType:
@@ -284,7 +357,23 @@ def from_arrow(pa_type) -> DataType:
         return month_day_nano_interval()
     if str(pa_type) in ("month_interval", "day_time_interval"):
         return DataType(str(pa_type))   # no Python constructor in pyarrow
-    raise NotImplementedError_(f"arrow type {pa_type} {_LATER}")
+    if pa.types.is_list(pa_type):
+        return list_(from_arrow(pa_type.value_type))
+    if pa.types.is_large_list(pa_type):
+        return large_list(from_arrow(pa_type.value_type))
+    if pa.types.is_fixed_size_list(pa_type):
+        return fixed_size_list(from_arrow(pa_type.value_type),
+                               pa_type.list_size)
+    if pa.types.is_struct(pa_type):
+        return struct((f.name, from_arrow(f.type)) for f in pa_type)
+    if pa.types.is_map(pa_type):
+        return map_(from_arrow(pa_type.key_type),
+                    from_arrow(pa_type.item_type))
+    if pa.types.is_union(pa_type):
+        make = sparse_union if pa_type.mode == "sparse" else dense_union
+        return make([(f.name, from_arrow(f.type)) for f in pa_type],
+                    list(pa_type.type_codes))
+    raise TypeError(f"unsupported arrow type {pa_type}")
 
 
 def to_arrow(t: DataType):
@@ -302,6 +391,19 @@ def to_arrow(t: DataType):
         # pyarrow has no Python constructor for these two (nor has the
         # JAX package's export)
         raise TypeError(f"pyarrow exposes no Python {t.kind} type")
+    if t.kind in ("list", "large_list"):
+        return getattr(pa, t.kind if t.kind == "large_list" else "list_")(
+            to_arrow(t.value_field))
+    if t.kind == "fixed_size_list":
+        return pa.list_(to_arrow(t.value_field), t.list_size)
+    if t.kind == "map":
+        return pa.map_(to_arrow(t.fields[0][1]), to_arrow(t.fields[1][1]))
+    if t.kind == "struct":
+        return pa.struct([pa.field(n, to_arrow(c)) for n, c in t.fields])
+    if t.is_nested:
+        return pa.union([pa.field(n, to_arrow(c)) for n, c in t.fields],
+                        mode="sparse" if t.kind == "sparse_union"
+                        else "dense", type_codes=list(t.type_codes))
     return getattr(pa, "bool_" if t.kind == "bool" else t.kind)()
 
 

@@ -4,8 +4,12 @@ arrow1_tpu/interop.py).
 Ingest normalizes every array to the engine's physical form: one
 fixed-width tensor, a bool validity tensor (None when nothing is null),
 and for strings int32 dictionary codes with the values kept on the host.
-pyarrow is imported only inside the functions that take or return pyarrow
-objects.
+Nested arrays become column.ListColumn, StructColumn and UnionColumn over
+children ingested the same way: a sliced array's offset is honoured, a
+variable list's offsets are rebased to 0 with a null slot's range made
+empty (its values are dropped, as ``list_flatten`` drops them), and a
+fixed_size_list keeps the child slots of its null parents. pyarrow is
+imported only inside the functions that take or return pyarrow objects.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 
 from . import dtypes as dt
-from .column import Column, Dictionary
+from .column import Column, Dictionary, ListColumn, StructColumn, UnionColumn
 from .device import resolve_device
 from .table import RecordBatch, Table
 
@@ -92,6 +96,8 @@ def column_from_arrow(arr, device=None) -> Column:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()   # dictionary chunks: pools unified
     t = dt.from_arrow(arr.type)
+    if t.is_nested:
+        return _from_nested(arr, t, device)
     if pa.types.is_dictionary(arr.type):
         return _from_dictionary_array(arr, t, device)
     valid = None
@@ -125,6 +131,110 @@ def column_from_arrow(arr, device=None) -> Column:
     return Column(_to_device(data, device), t,
                   validity=None if valid is None
                   else _to_device(valid, device))
+
+
+def _validity(arr, device):
+    import pyarrow.compute as pc
+
+    if not arr.null_count:
+        return None
+    return _to_device(np.asarray(pc.is_valid(arr), dtype=bool), device)
+
+
+def _from_nested(arr, t: dt.DataType, device):
+    """A list, large_list, fixed_size_list, map, struct or union array
+    (the JAX package's ingest, ``interop.py:74-132``, with its reading of
+    a sliced map's keys and items and a sliced union's type codes and
+    offsets fixed: ROADMAP Queue 3)."""
+    import pyarrow as pa
+
+    n = len(arr)
+    if t.kind == "struct":   # field(i) honours the array's offset
+        kids = [column_from_arrow(arr.field(i), device=device)
+                for i in range(arr.type.num_fields)]
+        return StructColumn(kids, [f.name for f in arr.type], t,
+                            validity=_validity(arr, device))
+    if t.kind in ("sparse_union", "dense_union"):
+        # .type_codes and .offsets ignore the slice: read the buffers
+        ids = np.frombuffer(arr.buffers()[1], dtype=np.int8,
+                            count=arr.offset + n)[arr.offset:]
+        kids = [column_from_arrow(arr.field(i), device=device)
+                for i in range(arr.type.num_fields)]
+        offsets = None
+        if t.kind == "dense_union":
+            offsets = _to_device(np.frombuffer(
+                arr.buffers()[2], dtype=np.int32,
+                count=arr.offset + n)[arr.offset:], device)
+        return UnionColumn(_to_device(ids, device), kids, t,
+                           offsets=offsets)
+    validity = _validity(arr, device)
+    if t.kind == "fixed_size_list":
+        k = t.list_size   # .values ignores the slice: take its rows' slots
+        child = column_from_arrow(arr.values.slice(arr.offset * k, n * k),
+                                  device=device)
+        offsets = np.arange(n + 1, dtype=np.int64) * k
+        return ListColumn(_to_device(offsets, device), child, t,
+                          validity=validity)
+    # variable lists and maps: offsets rebased to 0, a null slot's range
+    # empty; the child rows are those of the valid slots' ranges
+    raw = np.asarray(arr.offsets, dtype=np.int64)
+    lengths = raw[1:] - raw[:-1]
+    if arr.null_count:
+        import pyarrow.compute as pc
+
+        lengths = np.where(np.asarray(pc.is_valid(arr), dtype=bool),
+                           lengths, 0)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    parent = np.repeat(np.arange(n), lengths)
+    rows = pa.array(raw[:-1][parent] + np.arange(offsets[-1]) -
+                    offsets[:-1][parent], type=pa.int64())
+    if t.kind == "map":   # .keys/.items ignore the slice: rows are absolute
+        child = RecordBatch(
+            (column_from_arrow(arr.keys.take(rows), device=device),
+             column_from_arrow(arr.items.take(rows), device=device)),
+            ("key", "value"))
+    else:
+        child = column_from_arrow(arr.values.take(rows), device=device)
+    return ListColumn(_to_device(offsets, device), child, t,
+                      validity=validity)
+
+
+def _nested_to_arrow(col):
+    import pyarrow as pa
+
+    t = dt.to_arrow(col.dtype)
+    if isinstance(col, UnionColumn):
+        kids = [column_to_arrow(c) for c in col.children]
+        names = [name for name, _ in col.dtype.fields]
+        ids = pa.array(col.type_ids.cpu().numpy(), type=pa.int8())
+        codes = list(col.dtype.type_codes)
+        if col.is_dense:
+            offs = pa.array(col.offsets.cpu().numpy().astype(np.int32),
+                            type=pa.int32())
+            return pa.UnionArray.from_dense(ids, offs, kids, names, codes)
+        return pa.UnionArray.from_sparse(ids, kids, names, codes)
+    mask = None if col.validity is None else \
+        pa.array(~col.validity.cpu().numpy())
+    if isinstance(col, StructColumn):
+        return pa.StructArray.from_arrays(
+            [column_to_arrow(c) for c in col.children], fields=list(t),
+            mask=mask)
+    if col.dtype.kind == "fixed_size_list":
+        return pa.FixedSizeListArray.from_arrays(
+            column_to_arrow(col.values), type=t, mask=mask)
+    offsets = col.offsets.cpu().numpy()
+    if col.dtype.kind == "map":
+        return pa.MapArray.from_arrays(
+            pa.array(offsets.astype(np.int32)),
+            column_to_arrow(col.values.column("key")),
+            column_to_arrow(col.values.column("value")), type=t, mask=mask)
+    cls = pa.LargeListArray if col.dtype.kind == "large_list" \
+        else pa.ListArray
+    return cls.from_arrays(
+        pa.array(offsets.astype(np.int64 if col.dtype.kind == "large_list"
+                                else np.int32)),
+        column_to_arrow(col.values), type=t, mask=mask)
 
 
 _MDN = np.dtype([("m", "<i4"), ("d", "<i4"), ("n", "<i8")])
@@ -205,6 +315,8 @@ def _from_dictionary_array(arr, t: dt.DataType, device) -> Column:
 def column_to_arrow(col: Column):
     import pyarrow as pa
 
+    if not isinstance(col, Column):
+        return _nested_to_arrow(col)
     mask = None
     if col.validity is not None:
         mask = ~col.validity.cpu().numpy()
@@ -297,21 +409,58 @@ def table_to_arrow(t: Table):
 def from_reference_arrays(names: Sequence[str], arrays, device):
     """Build the port's state from another engine's read out as numpy.
 
-    ``arrays`` is one ``(data, validity, dictionary)`` triple per column,
-    where ``validity`` is a bool array or None and ``dictionary`` the value
-    pool of a dictionary-encoded column (``data`` then holds its codes) or
-    None: that gives a RecordBatch. A list of such lists, one per batch
-    (each with its own value pools, as an engine ingests them), gives a
-    Table. Null slots keep the data values they had, so both engines see
-    the same state bit for bit."""
+    ``arrays`` is one entry per column: a ``(data, validity, dictionary)``
+    triple for a flat column, where ``validity`` is a bool array or None
+    and ``dictionary`` the value pool of a dictionary-encoded column
+    (``data`` then holds its codes) or None; or, for a nested column, a
+    dict with its port ``type`` and its buffers as numpy arrays:
+    ``offsets`` (int64, from 0), ``values`` (the child's entry; a map's
+    is a list of the key and value entries) and ``validity`` for a list
+    type, ``children`` (entries) and ``validity`` for a struct,
+    ``type_ids`` (int8), ``children`` and, for a dense union,
+    ``offsets`` (int32) for a union. That gives a RecordBatch. A list of
+    such lists, one per batch (each with its own value pools, as an
+    engine ingests them), gives a Table. Null slots keep the data values
+    they had, so both engines see the same state bit for bit. ``device``
+    None means CUDA."""
+    device = resolve_device(device)
     arrays = list(arrays)
     if arrays and isinstance(arrays[0], list):
         return Table([from_reference_arrays(names, batch, device)
                       for batch in arrays])
-    cols = tuple(column_from_numpy(data, validity=validity, device=device,
-                                   dictionary=dictionary)
-                 for data, validity, dictionary in arrays)
+    cols = tuple(_reference_column(entry, device) for entry in arrays)
     return RecordBatch(cols, tuple(names))
+
+
+def _reference_column(entry, device):
+    if not isinstance(entry, dict):
+        data, validity, dictionary = entry
+        return column_from_numpy(data, validity=validity, device=device,
+                                 dictionary=dictionary)
+    t = entry["type"]
+
+    def mask(key="validity"):
+        v = entry.get(key)
+        return None if v is None else _to_device(np.asarray(v, bool),
+                                                 device)
+
+    if t.kind == "struct":
+        return StructColumn([_reference_column(c, device)
+                             for c in entry["children"]],
+                            [n for n, _ in t.fields], t, validity=mask())
+    if t.kind in ("sparse_union", "dense_union"):
+        offsets = entry.get("offsets")
+        return UnionColumn(
+            _to_device(np.asarray(entry["type_ids"], np.int8), device),
+            [_reference_column(c, device) for c in entry["children"]], t,
+            offsets=None if offsets is None else
+            _to_device(np.asarray(offsets, np.int32), device))
+    values = entry["values"]
+    child = RecordBatch(tuple(_reference_column(c, device)
+                              for c in values), ("key", "value")) \
+        if t.kind == "map" else _reference_column(values, device)
+    return ListColumn(_to_device(np.asarray(entry["offsets"], np.int64),
+                                 device), child, t, validity=mask())
 
 
 def tensor_from_u64(values, device) -> torch.Tensor:

@@ -2,5 +2,5 @@
 
 from . import (aggregate, arithmetic, bitwise, boolean, cast,  # noqa: F401
                compare, conditional, cumulative, dictionary, groupby, hash,
-               join, math, ree, selection, set_lookup, sort, strings,
+               join, math, nested, ree, selection, set_lookup, sort, strings,
                temporal, validity)

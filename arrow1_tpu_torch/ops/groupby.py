@@ -26,6 +26,7 @@ version on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, Sequence, Tuple
 
@@ -33,13 +34,13 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..column import Column
-from ..errors import Invalid, NotImplementedError_
+from ..column import Column, ListColumn
+from ..errors import Invalid
 from ..kernels.segsum2 import MAX_G, segment_sums
 from ..registry import register_function
 from ..table import RecordBatch
-from .aggregate import (_as_type, _sum_output_type, decimal_sum_type,
-                        high_words, mean_from_words)
+from .aggregate import (TDigestOptions, _as_type, _sum_output_type,
+                        decimal_sum_type, high_words, mean_from_words)
 from .common import as_int64, minmax_domain
 from .decimal import (decimal_to_float, digit_planes, group_extreme,
                       limbs_from_digit_sums, mean_limbs, pack)
@@ -49,10 +50,7 @@ from .hash import (group_ids_of, grouping_by_keys, grouping_from_ids,
 from .selection import take_column
 from .sort import normalize_sort_key, sort_indices_device
 
-__all__ = ["group_by", "grouped_aggregate"]
-
-_NESTED = "is not ported yet: list results come with the nested slice " \
-    "(ROADMAP Queue 1 item 9)"
+__all__ = ["group_by", "grouped_aggregate", "PivotWiderOptions"]
 
 
 def _segment_count(valid, gids: torch.Tensor, ngroups: int) -> torch.Tensor:
@@ -218,6 +216,18 @@ def _num_groups(gids: Column) -> int:
     return max(int(gids.data.max()) + 1 if gids.length else 0, 1)
 
 
+def _dense_ids(gids: Column, name: str) -> torch.Tensor:
+    """The group ids of the nested-result hash kernels, int64: valid,
+    integer and at least 0 (the JAX package reads any column's data)."""
+    if not isinstance(gids, Column) or not gids.dtype.is_integer or \
+            gids.validity is not None and not bool(gids.validity.all()):
+        raise Invalid(f"{name}: group ids must be a non-null integer array")
+    ids = dt.as_int64(gids.data)
+    if gids.length and int(ids.min()) < 0:
+        raise Invalid(f"{name}: group ids must be >= 0")
+    return ids
+
+
 def _register_hash_kernels():
     """The kernel-level hash-aggregate entry points over precomputed group
     ids (reference: hash_aggregate.cc:1039-1062)."""
@@ -245,6 +255,18 @@ def _register_hash_kernels():
             return _hash_result(_grouped_seg(values, fn_name, g))
 
         return exec_fn
+
+    def make_list(fn_name):
+        def exec_fn(args, options, ctx):
+            values, gids = args
+            return _grouped_list(values, _dense_ids(gids, f"hash_{fn_name}"),
+                                 _num_groups(gids),
+                                 distinct=fn_name == "distinct")
+
+        return exec_fn
+
+    for fn in ("list", "distinct"):
+        register_function(f"hash_{fn}", "hash_aggregate", 2)(make_list(fn))
 
     for name, fn in [("hash_first", "first"), ("hash_last", "last"),
                      ("hash_one", "one"), ("hash_first_last", "first_last"),
@@ -368,7 +390,8 @@ def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
     if fn == "approximate_median":
         return [("approximate_median", _grouped_median(col, g))]
     if fn in ("list", "distinct"):
-        raise NotImplementedError_(f"group {fn} {_NESTED}")
+        return [(fn, _grouped_list(col, group_ids_of(g), g.num_groups,
+                                   distinct=fn == "distinct"))]
     # binary min/max, any/all, count_distinct, product: scatter form
     return _grouped(col, fn, group_ids_of(g), g.num_groups)
 
@@ -437,6 +460,142 @@ def _grouped_median(col: Column, g) -> Column:
     hi = torch.ceil(mid).to(torch.int64).clamp(0, max(n - 1, 0))
     return Column((data2[lo] + data2[hi]) / 2.0, dt.float64,
                   validity=nv > 0)
+
+
+def _grouped_list(col, gids: torch.Tensor, ngroups: int,
+                  distinct: bool) -> ListColumn:
+    """Each group's values as a list, in row order (reference: hash_list);
+    ``distinct`` keeps each group's first row of every distinct non-null
+    value (hash_distinct, as pyarrow's default only_valid). The
+    distinct pairs (group, value) are a grouping of their own: its
+    segment starts come from K2. The rows then go to their groups by one
+    stable sort of their group ids; the offsets count each group's rows."""
+    gids = gids.to(torch.int64)
+    if distinct:
+        _, rows, _ = grouping_by_keys([(gids, 64)] +
+                                      grouping_key_pairs(col))
+        if col.validity is not None:
+            rows = rows[col.validity[rows]]
+        # first rows come out in row order: the sort below keeps it
+    else:
+        rows = torch.arange(col.length, device=col.device)
+    rg = gids[rows]
+    order = torch.sort(rg, stable=True).indices
+    counts = torch.zeros(ngroups, dtype=torch.int64,
+                         device=col.device).index_add_(
+                             0, rg, torch.ones_like(rg))
+    offsets = torch.zeros(ngroups + 1, dtype=torch.int64,
+                          device=col.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return ListColumn(offsets, take_column(col, rows[order]),
+                      dt.list_(col.dtype))
+
+
+def _hash_tdigest_exec(args, options: TDigestOptions, ctx):
+    """Each group's exact quantiles at ``q`` (linear interpolation), as a
+    list of float64 (reference: hash_tdigest, which a t-digest
+    approximates); a group with no valid value gives nulls, as pyarrow's
+    (the JAX package reads past its segment: ROADMAP Queue 3). The list
+    type is the JAX package's (pyarrow's is fixed_size_list)."""
+    values, gids = args
+    options = options or TDigestOptions()
+    qs = [options.q] if isinstance(options.q, (int, float)) \
+        else list(options.q)
+    ids = _dense_ids(gids, "hash_tdigest")
+    ngroups = _num_groups(gids)
+    g = grouping_from_ids(ids, ngroups)
+    dev = values.device
+    n = values.length
+    order = sort_indices_device([ids] + normalize_sort_key(values))
+    bounds = torch.searchsorted(ids[order],
+                                torch.arange(ngroups + 1, device=dev))
+    nv = segment_count(values.mask(), g)
+    data = values.data[order].to(torch.float64)
+    outs = []
+    for q in qs:
+        pos = bounds[:-1].to(torch.float64) + (nv.to(torch.float64) - 1) * q
+        lo = torch.floor(pos).to(torch.int64).clamp(0, max(n - 1, 0))
+        hi = torch.ceil(pos).to(torch.int64).clamp(0, max(n - 1, 0))
+        frac = pos - torch.floor(pos)
+        outs.append(data[lo] * (1 - frac) + data[hi] * frac)
+    has = (nv > 0).repeat_interleave(len(qs))
+    child = torch.stack(outs, 1).reshape(-1) if n else \
+        torch.zeros(ngroups * len(qs), dtype=torch.float64, device=dev)
+    offsets = torch.arange(ngroups + 1, device=dev) * len(qs)
+    return ListColumn(offsets, Column(torch.where(has, child, 0.0),
+                                      dt.float64, validity=has),
+                      dt.list_(dt.float64))
+
+
+register_function("hash_tdigest", "hash_aggregate", 2, TDigestOptions)(
+    _hash_tdigest_exec)
+
+
+@dataclasses.dataclass
+class PivotWiderOptions:
+    key_names: tuple = ()
+    unexpected_key_behavior: str = "ignore"
+
+
+def _pivot_pairs(keys_col: Column, values_col: Column, key_names,
+                 gids: torch.Tensor, ngroups: int):
+    """One column per key name: each group's value where the key is that
+    name (at most one non-null value for a (group, key), else Invalid);
+    null where there is none."""
+    if keys_col.dictionary is None:
+        raise Invalid("pivot_wider: keys must be strings")
+    dev = values_col.device
+    rows = torch.arange(values_col.length, device=dev)
+    out = []
+    for name in key_names:
+        code = keys_col.dictionary.index.get(name, -1)
+        hit = (keys_col.data == code) & keys_col.mask() & values_col.mask()
+        dup = torch.zeros(ngroups, dtype=torch.int64, device=dev).index_add_(
+            0, gids, hit.to(torch.int64))
+        if bool((dup > 1).any()):
+            raise Invalid("Encountered more than one non-null value for "
+                          "the same pivot key")
+        row = torch.full((ngroups + 1,), -1, dtype=torch.int64, device=dev
+                         ).scatter_reduce(0, torch.where(hit, gids, ngroups),
+                                          rows, "amax")[:ngroups]
+        filled = dup > 0
+        if values_col.length:
+            got = take_column(values_col, row.clamp(min=0), filled)
+        else:
+            got = Column(values_col.data.new_zeros(ngroups),
+                         values_col.dtype, validity=filled,
+                         dictionary=values_col.dictionary)
+        out.append((name, got))
+    return RecordBatch(tuple(c for _, c in out), tuple(n for n, _ in out))
+
+
+def _pivot_wider_exec(args, options: PivotWiderOptions, ctx):
+    """The values as one row of one column per key name (reference:
+    scalar pivot_wider)."""
+    keys_col, values_col = args
+    if options is None or not options.key_names:
+        raise Invalid("pivot_wider requires key_names")
+    return _pivot_pairs(keys_col, values_col, options.key_names,
+                        torch.zeros(keys_col.length, dtype=torch.int64,
+                                    device=keys_col.device), 1)
+
+
+register_function("pivot_wider", "scalar", 2, PivotWiderOptions)(
+    _pivot_wider_exec)
+
+
+def _hash_pivot_wider_exec(args, options: PivotWiderOptions, ctx):
+    """pivot_wider per group of precomputed ids: one row a group."""
+    keys_col, values_col, gids = args
+    if options is None or not options.key_names:
+        raise Invalid("hash_pivot_wider requires key_names")
+    ids = _dense_ids(gids, "hash_pivot_wider")
+    return _pivot_pairs(keys_col, values_col, options.key_names, ids,
+                        _num_groups(gids))
+
+
+register_function("hash_pivot_wider", "hash_aggregate", 3,
+                  PivotWiderOptions)(_hash_pivot_wider_exec)
 
 
 _DENSE_AGGS = frozenset(["sum", "count", "mean"])
@@ -594,8 +753,8 @@ def group_by(batch: RecordBatch, keys: Sequence[str],
     plain = []
     for col_name, _ in aggregates:
         c = batch.column(col_name)
-        if col_name not in plain and c.data2 is None and \
-                c.dictionary is None:
+        if col_name not in plain and isinstance(c, Column) and \
+                c.data2 is None and c.dictionary is None:
             plain.append(col_name)
     payloads = []
     for col_name in plain:

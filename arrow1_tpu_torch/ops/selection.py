@@ -6,17 +6,22 @@ arrow1_tpu/ops/selection.py).
 the mask's own validity through ONE call of the compaction kernel
 (kernels/compaction.py, K2), then reads the kept-row count on the host to
 size the result: the counterpart of the JAX package's ``_filter_pallas``,
-without its f64 bit views (Hopper moves f64 as it is).
+without its f64 bit views (Hopper moves f64 as it is). A batch that holds
+nested columns adds the row numbers to that launch as one more stream:
+the kept rows' numbers come out with the flat columns, and each nested
+column is gathered by them (``take_column``). The JAX package sends such
+a batch to a plain gather (its ``_compactable``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from .. import dtypes as dt
-from ..column import Column
+from ..column import Column, ListColumn, StructColumn, UnionColumn
 from ..datum import Scalar
 from ..errors import IndexError_, Invalid
 from ..kernels.compaction import compact
@@ -37,17 +42,71 @@ class TakeOptions:
     boundscheck: bool = True
 
 
-def take_column(values: Column, indices: torch.Tensor,
-                out_validity=None) -> Column:
-    """Typed gather; ``out_validity`` is ANDed into the result's."""
-    validity = None if values.validity is None else values.validity[indices]
-    if out_validity is not None:
-        validity = out_validity if validity is None else \
-            (validity & out_validity)
+def take_column(values, indices: torch.Tensor, out_validity=None):
+    """Typed gather; ``out_validity`` is ANDed into the result's. A list
+    column gathers its child by indices composed from the parents'
+    ranges, a struct or a map's child batch field by field, a union its
+    type ids (and a dense union's offsets; a sparse union's children row
+    by row)."""
+    if isinstance(values, ListColumn):
+        return _take_list(values, indices, out_validity)
+    if isinstance(values, RecordBatch):   # a map's key/value child batch
+        return RecordBatch(tuple(take_column(c, indices, out_validity)
+                                 for c in values.columns), values.names)
+    if isinstance(values, StructColumn):
+        return StructColumn(tuple(take_column(c, indices)
+                                  for c in values.children), values.names,
+                            values.dtype, validity=_and_validity(
+                                values.validity, indices, out_validity))
+    if isinstance(values, UnionColumn):
+        if values.is_dense:
+            return UnionColumn(values.type_ids[indices], values.children,
+                               values.dtype, offsets=values.offsets[indices])
+        return UnionColumn(values.type_ids[indices],
+                           tuple(take_column(c, indices)
+                                 for c in values.children), values.dtype)
+    validity = _and_validity(values.validity, indices, out_validity)
     return Column(values.data[indices], values.dtype, validity=validity,
                   dictionary=values.dictionary,
                   data2=None if values.data2 is None
                   else values.data2[indices])
+
+
+def _and_validity(validity, indices, out_validity):
+    got = None if validity is None else validity[indices]
+    if out_validity is not None:
+        got = out_validity if got is None else (got & out_validity)
+    return got
+
+
+def expand_ranges(starts: torch.Tensor, lengths: torch.Tensor,
+                  total: Optional[int] = None):
+    """(child row of each output item, its parent slot) for slots whose
+    items are rows [starts[i], starts[i] + lengths[i]): the parents by one
+    ``repeat_interleave`` (``total`` items, read on the host when not
+    given) and the offsets of the new slots, int64[n + 1] from 0."""
+    dev = lengths.device
+    offsets = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64,
+                          device=dev)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    if total is None:
+        total = int(offsets[-1])
+    parent = torch.repeat_interleave(
+        torch.arange(lengths.shape[0], device=dev), lengths,
+        output_size=total)
+    within = torch.arange(total, dtype=torch.int64, device=dev) - \
+        offsets[parent]
+    return starts[parent] + within, parent, offsets
+
+
+def _take_list(values: ListColumn, indices, out_validity=None):
+    """List gather (reference: vector_selection.cc ListImpl): the child
+    rows of the taken slots, their ranges one after another."""
+    rows, _, offsets = expand_ranges(values.offsets[:-1][indices],
+                                     values.value_lengths()[indices])
+    return ListColumn(offsets, take_column(values.values, rows),
+                      values.dtype, validity=_and_validity(
+                          values.validity, indices, out_validity))
 
 
 def gather_batch(batch: RecordBatch, idx: torch.Tensor,
@@ -124,10 +183,14 @@ def _filter_exec(args, options: FilterOptions, ctx):
         options = FilterOptions()
     selected, mask_validity = _effective_mask(
         mask, options.null_selection_behavior)
+    flat = [i for i, c in enumerate(cols) if isinstance(c, Column)]
+    nested = len(flat) < len(cols)
     # layout: (column index, "data" | "data2" | "validity"); a decimal256's
-    # three high limbs ([n, 3]) ride as three 1-D streams
+    # three high limbs ([n, 3]) ride as three 1-D streams; (-1, "rows")
+    # the row numbers, when a nested column is gathered by them
     streams, layout = [], []
-    for i, c in enumerate(cols):
+    for i in flat:
+        c = cols[i]
         streams.append(c.data)
         layout.append((i, "data"))
         if c.data2 is not None and c.data2.dim() == 2:
@@ -142,9 +205,13 @@ def _filter_exec(args, options: FilterOptions, ctx):
     if mask_validity is not None:
         streams.append(mask_validity)
         layout.append((-1, "validity"))
+    if nested:
+        streams.append(torch.arange(n, dtype=torch.int64,
+                                    device=selected.device))
+        layout.append((-1, "rows"))
     outs, count = compact(selected, streams)
     count = int(count)   # the one host sync: it sizes the result
-    moved = {"data": {}, "data2": {}, "validity": {}}
+    moved = {"data": {}, "data2": {}, "validity": {}, "rows": {}}
     limbs = {}
     for (ci, kind), out in zip(layout, outs):
         if kind == "data2" and cols[ci].data2.dim() == 2:
@@ -156,6 +223,10 @@ def _filter_exec(args, options: FilterOptions, ctx):
     data, valid = moved["data"], moved["validity"]
     out_cols = []
     for i, c in enumerate(cols):
+        if not isinstance(c, Column):
+            out_cols.append(take_column(c, moved["rows"][-1],
+                                        valid.get(-1)))
+            continue
         validity = valid.get(i)
         if -1 in valid:
             validity = valid[-1] if validity is None else \

@@ -18,11 +18,15 @@ so grouping, compares and joins on the result see equal strings as one.
 The JAX package keeps the codes, and its two codes of one string group
 and compare as two.
 
-``extract_regex`` and ``extract_regex_span`` give RecordBatches, the
-port's form of a struct result; ``extract_regex_span`` gives each named
-group g as two int32 columns, ``g.offset`` and ``g.length``, until
-ListColumn (ROADMAP Queue 1 item 9) gives it its list type. The split
-family and ``binary_join`` (list inputs or results) wait for that item.
+``extract_regex`` gives a StructColumn of one string field per named
+group and ``extract_regex_span`` a StructColumn of one
+fixed_size_list<int32>[2] ([byte offset, byte length]) per group, as the
+JAX package's do. The split family splits each pool value once on the
+host (a pool of the pieces, each once) and builds the rows' lists on the
+device: offsets from the values' piece counts, the pieces' codes by one
+gather of the expanded ranges. ``binary_join`` joins each distinct list
+of codes (and separator) once on the host; the rows take their string by
+one gather.
 """
 
 from __future__ import annotations
@@ -34,14 +38,15 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..column import Column, Dictionary
+from ..column import Column, Dictionary, ListColumn, StructColumn
 from ..datum import Scalar
 from ..errors import Invalid
 from ..registry import register_function
-from ..table import RecordBatch
 from .common import intersect_validity
+from .selection import expand_ranges
 
-__all__ = ["MatchSubstringOptions", "ReplaceSubstringOptions",
+__all__ = ["MatchSubstringOptions", "SplitOptions", "SplitPatternOptions",
+           "ReplaceSubstringOptions",
            "ExtractRegexOptions", "TrimOptions", "PadOptions",
            "SliceOptions", "JoinOptions", "ReplaceSliceOptions",
            "NormalizeOptions", "ZeroFillOptions", "with_pool"]
@@ -53,6 +58,21 @@ class MatchSubstringOptions:
 
     pattern: str = ""
     ignore_case: bool = False
+
+
+@dataclasses.dataclass
+class SplitOptions:
+    """Reference: api_scalar.h SplitOptions."""
+
+    max_splits: Optional[int] = None
+    reverse: bool = False
+
+
+@dataclasses.dataclass
+class SplitPatternOptions:
+    pattern: str = ""
+    max_splits: Optional[int] = None
+    reverse: bool = False
 
 
 @dataclasses.dataclass
@@ -253,7 +273,7 @@ for _name in ["count_substring", "find_substring", "count_substring_regex",
         _dict_lut(_name, dt.int32))
 
 
-# ---- extract_regex and extract_regex_span: RecordBatch results ----
+# ---- extract_regex and extract_regex_span: struct results ----
 
 def _extract_validity(col: Column, matched) -> torch.Tensor:
     """Rows whose value matched (and is not null)."""
@@ -264,8 +284,8 @@ def _extract_validity(col: Column, matched) -> torch.Tensor:
 
 
 def _extract_regex_exec(args, options: ExtractRegexOptions, ctx):
-    """One string field per named group; a row whose value does not match
-    is null in every field (pyarrow's null struct)."""
+    """A struct of one string field per named group; a row whose value
+    does not match is a null struct, and null in every field."""
     from .strings_host import host_extract
 
     (col,) = args
@@ -278,13 +298,16 @@ def _extract_regex_exec(args, options: ExtractRegexOptions, ctx):
     cols = [with_pool(_codes(col), col.dtype, valid,
                       [empty if r is None else r[g] for r in rows])
             for g in names]
-    return RecordBatch(tuple(cols), tuple(names))
+    return StructColumn(cols, names, dt.struct([(g, col.dtype)
+                                                for g in names]),
+                        validity=valid)
 
 
 def _extract_regex_span_exec(args, options: ExtractRegexOptions, ctx):
-    """Per named group g, ``g.offset`` and ``g.length`` (int32 bytes; -1
-    and 0 for a group that took no part in the match); null where the
-    value does not match."""
+    """A struct of one fixed_size_list<int32>[2] per named group: the
+    group's [byte offset, byte length] ([-1, 0] for a group that took no
+    part in the match); a row whose value does not match is null, in the
+    struct and every field."""
     from .strings_host import host_extract_span
 
     (col,) = args
@@ -294,22 +317,78 @@ def _extract_regex_span_exec(args, options: ExtractRegexOptions, ctx):
     names, rows = host_extract_span(options.pattern,
                                     list(col.dictionary.values))
     valid = _extract_validity(col, [r is not None for r in rows])
-    cols, out_names = [], []
+    n, dev = col.length, col.device
+    pair_t = dt.fixed_size_list(dt.int32, 2)
+    offsets = torch.arange(n + 1, dtype=torch.int64, device=dev) * 2
+    item_valid = valid.repeat_interleave(2)
+    cols = []
     for g in names:
-        for i, part in enumerate(("offset", "length")):
-            table = torch.tensor([0 if r is None else r[g][i] for r in rows],
-                                 dtype=torch.int32).to(col.device)
-            data = _gather(table, col) if len(rows) else \
-                torch.zeros(col.length, dtype=torch.int32, device=col.device)
-            cols.append(Column(data, dt.int32, validity=valid))
-            out_names.append(f"{g}.{part}")
-    return RecordBatch(tuple(cols), tuple(out_names))
+        table = torch.tensor([[0, 0] if r is None else r[g] for r in rows],
+                             dtype=torch.int32).reshape(-1, 2).to(dev)
+        pairs = torch.index_select(table, 0, _codes(col)) if len(rows) \
+            else torch.zeros((n, 2), dtype=torch.int32, device=dev)
+        cols.append(ListColumn(offsets, Column(pairs.reshape(-1), dt.int32,
+                                               validity=item_valid),
+                               pair_t, validity=valid))
+    return StructColumn(cols, names, dt.struct([(g, pair_t)
+                                                for g in names]),
+                        validity=valid)
 
 
 register_function("extract_regex", "scalar", 1, ExtractRegexOptions)(
     _extract_regex_exec)
 register_function("extract_regex_span", "scalar", 1, ExtractRegexOptions)(
     _extract_regex_span_exec)
+
+
+# ---- the split family: a pool of pieces, lists built on the device ----
+
+def _split_exec(name):
+    def exec_fn(args, options, ctx):
+        from .strings_host import host_split
+
+        (col,) = args
+        _require_string(col, name)
+        dev = col.device
+        if options is None:
+            if name.startswith("split_pattern"):
+                raise Invalid(f"{name} requires a pattern")
+            options = SplitOptions()
+        pieces = host_split(name, list(col.dictionary.values), options)
+        counts = np.fromiter(map(len, pieces), np.int64, len(pieces))
+        starts = np.zeros(len(pieces) + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        pool = {}   # each piece once, in first-appearance order
+        piece_codes = np.fromiter(
+            (pool.setdefault(p, len(pool)) for parts in pieces
+             for p in parts), np.int32, int(starts[-1]))
+        code_len = torch.from_numpy(counts).to(dev)
+        lengths = _gather(code_len, col) if len(pieces) else \
+            torch.zeros(col.length, dtype=torch.int64, device=dev)
+        if col.validity is not None:
+            lengths = torch.where(col.validity, lengths, 0)
+        first = torch.from_numpy(starts[:-1]).to(dev)
+        rows, _, offsets = expand_ranges(
+            _gather(first, col) if len(pieces) else lengths, lengths)
+        table = torch.from_numpy(piece_codes).to(dev)
+        child = Column(torch.index_select(table, 0, rows) if len(table)
+                       else torch.zeros(0, dtype=torch.int32, device=dev),
+                       col.dtype, dictionary=Dictionary(
+                           np.array(list(pool), dtype=object)))
+        return ListColumn(offsets, child, dt.list_(col.dtype),
+                          validity=col.validity)
+
+    return exec_fn
+
+
+register_function("split_pattern", "scalar", 1, SplitPatternOptions)(
+    _split_exec("split_pattern"))
+register_function("split_pattern_regex", "scalar", 1, SplitPatternOptions)(
+    _split_exec("split_pattern_regex"))
+register_function("ascii_split_whitespace", "scalar", 1, SplitOptions)(
+    _split_exec("ascii_split_whitespace"))
+register_function("utf8_split_whitespace", "scalar", 1, SplitOptions)(
+    _split_exec("utf8_split_whitespace"))
 
 
 # ---- row-wise: binary_join_element_wise and binary_repeat ----
@@ -419,3 +498,58 @@ def _binary_repeat_exec(args, options, ctx):
 register_function("binary_join_element_wise", "scalar", -1, JoinOptions)(
     _binary_join_element_wise_exec)
 register_function("binary_repeat", "scalar", 2)(_binary_repeat_exec)
+
+
+def _binary_join_exec(args, options, ctx):
+    """binary_join(list<string>, separator): each slot's items joined by
+    the separator (a scalar or a string column); a null list, a null
+    separator or a null item gives null (reference: scalar_string.cc
+    BinaryJoin). Each distinct (items' codes, separator's code) tuple is
+    joined once on the host; the rows take their string by one gather."""
+    lists, sep = args
+    if not isinstance(lists, ListColumn) or \
+            not isinstance(lists.values, Column) or \
+            not lists.values.dtype.is_binary:
+        raise TypeError("binary_join: expected a list of strings")
+    items = lists.values
+    n, dev = lists.length, lists.device
+    lengths = lists.value_lengths()
+    width = int(lengths.max()) if n else 0
+    code = items.data.to(torch.int64)
+    if items.validity is not None:   # a null item: code -2
+        code = torch.where(items.validity, code, -2)
+    parts = []
+    for j in range(width):   # -1 past a slot's end
+        at = (lists.offsets[:-1] + j).clamp(max=max(items.length - 1, 0))
+        parts.append(torch.where(lengths > j, code[at], -1))
+    valid = lists.mask()
+    if isinstance(sep, Scalar):
+        sep_values = [sep.as_py()] if sep.is_valid else []
+        parts.append(torch.zeros(n, dtype=torch.int64, device=dev))
+    else:
+        _require_string(sep, "binary_join")
+        sep_values = sep.dictionary.values
+        parts.append(_codes(sep).to(torch.int64))
+        if sep.validity is not None:
+            valid = valid & sep.validity
+    uniq, inv = _distinct_rows(parts) if n else \
+        (np.zeros((0, len(parts)), np.int64),
+         torch.zeros(0, dtype=torch.int32, device=dev))
+    pool = items.dictionary.values
+    empty = "" if _is_string(items.dtype) else b""
+    values, ok = [], []
+    for row in uniq.tolist():
+        *codes, s = row
+        if -2 in codes or not len(sep_values):
+            values.append(empty)
+            ok.append(False)
+            continue
+        values.append(sep_values[s].join(pool[c] for c in codes if c >= 0))
+        ok.append(True)
+    if ok:
+        valid = valid & torch.index_select(
+            torch.tensor(ok, dtype=torch.bool).to(dev), 0, inv)
+    return with_pool(inv, items.dtype, valid, values)
+
+
+register_function("binary_join", "scalar", 2)(_binary_join_exec)

@@ -21,12 +21,15 @@ the reference's utf8proc and RE2 kernels
   mode, so their offsets differ on non-ASCII input: matched behaviour of
   the JAX package, not a fault (ROADMAP).
 
-The split family (list results) comes with ListColumn.
+- splits keep boundary empties (' a ' -> ['', 'a', '']); a regex split
+  skips empty matches; utf8_split_whitespace keeps the reference's
+  quirk at a string's end (below).
 """
 
 from __future__ import annotations
 
 import functools
+import operator
 import re
 import unicodedata
 
@@ -391,6 +394,88 @@ def host_measure(name, values, options):
     if fn is None:
         raise Invalid(f"no host string measure for {name}")
     return [False if v is None else fn(v, options) for v in values]
+
+
+# ------------------------------------------------------------------ splits
+
+def _split_spans(s, spans, max_splits, reverse):
+    if max_splits is not None and max_splits >= 0 and len(spans) > max_splits:
+        spans = spans[-max_splits:] if reverse else spans[:max_splits]
+    out, pos = [], 0
+    for a, b in spans:
+        out.append(s[pos:a])
+        pos = b
+    out.append(s[pos:])
+    return out
+
+
+def _lit_spans(s, pat):
+    spans, pos = [], 0
+    if not pat:
+        raise Invalid("Empty separator")
+    while True:
+        i = s.find(pat, pos)
+        if i < 0:
+            return spans
+        spans.append((i, i + len(pat)))
+        pos = i + len(pat)
+
+
+def host_split(name, values, options):
+    """str->list[str] kernel; returns a list of piece-lists (None rows
+    stay None)."""
+    max_splits = getattr(options, "max_splits", None)
+    reverse = bool(getattr(options, "reverse", False))
+    if name == "split_pattern":
+        pat = options.pattern
+        if not pat:
+            raise Invalid("Empty separator")
+        if not reverse and None not in values:
+            # str.split: the same left-to-right spans (a pool holds str
+            # values or bytes values, never both)
+            limit = -1 if max_splits is None or max_splits < 0 \
+                else max_splits
+            sep = _coerce_pat(values[0], pat) if values else pat
+            return list(map(operator.methodcaller("split", sep, limit),
+                            values))
+
+        def spans(s):
+            return _lit_spans(s, _coerce_pat(s, pat))
+    elif name == "split_pattern_regex":
+        if reverse:
+            raise Invalid("Cannot split in reverse with regex")
+
+        def spans(s):
+            rx = _rx(options, sample=s)
+            return [m.span() for m in rx.finditer(s) if m.end() > m.start()]
+    elif name == "ascii_split_whitespace":
+        def spans(s):
+            rx = re.compile(r"[ \t\r\n\v\f]+" if isinstance(s, str)
+                            else rb"[ \t\r\n\v\f]+")
+            return [m.span() for m in rx.finditer(s)]
+    elif name == "utf8_split_whitespace":
+        # Reference quirk (scalar_string.cc SplitWhitespaceUtf8Finder):
+        # the do-while requires i < end AFTER decoding the next codepoint,
+        # so a whitespace run of >=2 codepoints touching the string end
+        # (forward) / start (reverse) splits into run[:-1] + run[-1:]
+        # separators ('  ' -> ['', '', ''] while ascii gives ['', '']).
+        rx = re.compile(r"\s+")
+
+        def spans(s):
+            out = []
+            for a, b in (m.span() for m in rx.finditer(s)):
+                if b - a >= 2 and (b == len(s) if not reverse else a == 0):
+                    cut = b - 1 if not reverse else a + 1
+                    out.append((a, cut))
+                    out.append((cut, b))
+                else:
+                    out.append((a, b))
+            return out
+    else:
+        raise Invalid(f"no host split for {name}")
+    return [None if v is None
+            else _split_spans(v, spans(v), max_splits, reverse)
+            for v in values]
 
 
 # ----------------------------------------------------------------- extract

@@ -3,8 +3,9 @@ named equal-length Columns on one device, the unit every kernel runs on;
 Table, a host-side sequence of same-schema RecordBatches that the query
 layer streams batch by batch; ChunkedColumn, one column of a Table.
 
-List columns wait for the nested slice; ``concat_columns`` carries
-``data2`` (an interval's nanoseconds, a decimal's high limbs) along.
+``concat_columns`` carries ``data2`` (an interval's nanoseconds, a
+decimal's high limbs) along, and joins list, struct and union columns
+and a map's child batches part by part.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .column import Column
+from . import dtypes as dt
+from .column import Column, ListColumn, StructColumn, UnionColumn
 from .errors import Invalid, KeyError_
 
 __all__ = ["RecordBatch", "Table", "ChunkedColumn", "record_batch", "table",
-           "concat_batches", "concat_columns"]
+           "concat_batches", "concat_columns", "with_parent_validity"]
 
 
 class RecordBatch:
@@ -82,6 +84,15 @@ class RecordBatch:
     def to_pydict(self) -> dict:
         return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}
 
+    def to_struct_array(self) -> StructColumn:
+        """The batch as one struct column of its columns (no validity)."""
+        return StructColumn(self.columns, self.names, dt.struct(
+            (n, c.dtype) for n, c in zip(self.names, self.columns)))
+
+    @classmethod
+    def from_struct_array(cls, struct_col: StructColumn) -> "RecordBatch":
+        return cls(struct_col.children, struct_col.names)
+
     def to_arrow(self):
         from .interop import record_batch_to_arrow
 
@@ -97,29 +108,82 @@ def concat_columns(cols: Sequence[Column]) -> Column:
     """Same-type Columns end to end (reference: array/concatenate.cc).
     Validity is materialized when any part has one; dictionary columns
     whose parts hold different value pools are re-encoded against one
-    merged pool (``ops.dictionary.unify_dictionaries``)."""
+    merged pool (``ops.dictionary.unify_dictionaries``). List columns
+    join their children and rebase their offsets; struct columns, a
+    map's child batches and sparse unions join child by child; a dense
+    union's offsets are rebased by the lengths of its earlier parts'
+    children."""
     if not cols:
         raise Invalid("concat_columns: no columns")
     if len(cols) == 1:
         return cols[0]
     first = cols[0]
+    if isinstance(first, RecordBatch):   # a map's key/value child batch
+        return RecordBatch(tuple(concat_columns([c.columns[i] for c in cols])
+                                 for i in range(first.num_columns)),
+                           first.names)
     if any(c.dtype != first.dtype for c in cols):
         raise Invalid("concat_columns: the columns differ in type: "
                       f"{sorted({repr(c.dtype) for c in cols})}")
+    if isinstance(first, ListColumn):
+        return _concat_list_columns(cols)
+    if isinstance(first, StructColumn):
+        return StructColumn(
+            tuple(concat_columns([c.children[i] for c in cols])
+                  for i in range(len(first.children))), first.names,
+            first.dtype, validity=_concat_validity(cols))
+    if isinstance(first, UnionColumn):
+        return _concat_union_columns(cols)
     data = torch.cat([c.data for c in cols])
     data2 = None if first.data2 is None else \
         torch.cat([c.data2 for c in cols])
-    validity = None
-    if any(c.validity is not None for c in cols):
-        validity = torch.cat([c.mask() for c in cols])
     dictionary = first.dictionary
     if dictionary is not None and any(c.dictionary is not dictionary
                                       for c in cols):
         from .ops.dictionary import unify_dictionaries
 
         data, dictionary = unify_dictionaries(cols)
-    return Column(data, first.dtype, validity=validity,
+    return Column(data, first.dtype, validity=_concat_validity(cols),
                   dictionary=dictionary, data2=data2)
+
+
+def _concat_validity(cols):
+    if any(c.validity is not None for c in cols):
+        return torch.cat([c.mask() for c in cols])
+    return None
+
+
+def _concat_list_columns(cols) -> ListColumn:
+    """List columns end to end: the children joined, each part's offsets
+    (from 0) moved up by the child rows before it."""
+    parts, base = [], 0
+    for c in cols:
+        parts.append(c.offsets[:-1] + base)
+        base += int(c.offsets[-1])
+    parts.append(cols[0].offsets.new_full((1,), base))
+    return ListColumn(torch.cat(parts),
+                      concat_columns([c.values for c in cols]),
+                      cols[0].dtype, validity=_concat_validity(cols))
+
+
+def _concat_union_columns(cols) -> UnionColumn:
+    first = cols[0]
+    type_ids = torch.cat([c.type_ids for c in cols])
+    kids = tuple(concat_columns([c.children[i] for c in cols])
+                 for i in range(len(first.children)))
+    if not first.is_dense:
+        return UnionColumn(type_ids, kids, first.dtype)
+    codes = list(first.dtype.type_codes)
+    bases = [0] * len(codes)
+    parts = []
+    for c in cols:   # each slot moves up by its child's earlier rows
+        shift = torch.zeros(c.length, dtype=torch.int32, device=c.device)
+        for k, code in enumerate(codes):
+            shift = torch.where(c.type_ids == code, bases[k], shift)
+        parts.append(c.offsets + shift)
+        bases = [b + kid.length for b, kid in zip(bases, c.children)]
+    return UnionColumn(type_ids, kids, first.dtype,
+                       offsets=torch.cat(parts))
 
 
 def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
@@ -136,6 +200,23 @@ def concat_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
                           f"vs {list(b.names)}")
     return RecordBatch(tuple(concat_columns([b.columns[i] for b in batches])
                              for i in range(len(names))), names)
+
+
+def with_parent_validity(col, validity):
+    """``col`` with ``validity`` (a parent's, or None) ANDed into its own:
+    a struct field read through a null struct slot is null."""
+    if validity is None:
+        return col
+    if isinstance(col, Column):
+        return Column(col.data, col.dtype, validity=col.mask() & validity,
+                      dictionary=col.dictionary, data2=col.data2)
+    if isinstance(col, ListColumn):
+        return ListColumn(col.offsets, col.values, col.dtype,
+                          validity=col.mask() & validity)
+    if isinstance(col, StructColumn):
+        return StructColumn(col.children, col.names, col.dtype,
+                            validity=col.mask() & validity)
+    return col   # a union has no validity of its own
 
 
 class ChunkedColumn:
@@ -228,6 +309,24 @@ class Table:
 
     def __getitem__(self, key) -> ChunkedColumn:
         return self.column(key)
+
+    def flatten(self) -> "Table":
+        """Each struct column replaced by its fields, named
+        "{column}.{field}" (pyarrow.Table.flatten); a null struct slot
+        nulls its fields. Batch by batch."""
+        out = []
+        for b in self.batches:
+            cols, names = [], []
+            for n, c in zip(b.names, b.columns):
+                if not isinstance(c, StructColumn):
+                    cols.append(c)
+                    names.append(n)
+                    continue
+                for cn, cc in zip(c.names, c.children):
+                    cols.append(with_parent_validity(cc, c.validity))
+                    names.append(f"{n}.{cn}")
+            out.append(RecordBatch(tuple(cols), tuple(names)))
+        return Table(out)
 
     def to_arrow(self):
         from .interop import table_to_arrow

@@ -156,7 +156,17 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    time per call from torch.profiler's kernel records (PROFILE_CALLS
    calls), last, because the profiler's CUDA tracing may stay attached to
    the process and slow the launches after it; every probe must show its
-   a1t:: operator in the profile.
+   a1t:: operator in the profile;
+19. (run before 18, over phase 12's line items) nests the SF10 line items
+   under their 15M orders: hash_list by l_orderkey, the list functions,
+   a K2 filter of the orders batch that holds the list columns,
+   hash_distinct, a map per order and map_lookup, make_struct and
+   struct_field, hash_tdigest by flag, the split family over 10M string
+   rows and binary_join back, each timed and held against the same call
+   on CPU tensors over the first NESTED_WINDOW orders or rows, with
+   round trips at full size; then Q1's quantities by (year, flag) pivoted
+   wide (hash_pivot_wider, pivot_wider) against numpy; its K2 launches
+   are counted and must be above 0.
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -1546,10 +1556,10 @@ def phase_strings(pt, dev, counted):
             out, ms = _wall_ms(lambda: cs.call(name, sets[label]))
             first = out.columns[0] if isinstance(out, pt.RecordBatch) \
                 else out
-            if first.data.device.type != "cuda" or \
-                    first.length != STRING_ROWS:
+            if first.device.type != "cuda" or \
+                    first.length != STRING_ROWS:   # a struct result too
                 failures.append(f"{name} on {label}: ran on "
-                                f"{first.data.device}, {first.length} rows")
+                                f"{first.device}, {first.length} rows")
                 continue
             times[name, label] = ms
             problem = cs.same_result(out, cs.call(name, windows[label]),
@@ -1774,6 +1784,9 @@ def phase_temporal(pt, dev, counted, lt, want):
 DECIMAL_ROWS = 10_000_000            # each decimal column's rows
 DECIMAL_WINDOW = 1_000_000           # rows held against the CPU
 Q6_DAYS = (8766, 9131)   # [1994-01-01, 1995-01-01) (TPC-H Q6)
+NESTED_WINDOW = 1_000_000            # orders (and rows) held against the CPU
+NESTED_STRING_ROWS = 10_000_000      # the split family's rows
+NESTED_FLAGS = ("A", "N", "R")
 
 
 def _decimal_lineitem(pt, lt, dev):
@@ -2053,6 +2066,301 @@ def phase_decimal(pt, dev, counted, lt):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
+
+
+def _nested_steps(pt):
+    """The calls of the nested phase, in order: (label, kind, call). Each
+    call takes the namespace ``d`` (the line items ``li``, the first
+    rows ``head``, the string columns ``str`` and the earlier results
+    by label) and returns its result. ``kind`` says how a card result is
+    held against the CPU's: "orders" over the orders of the window (the
+    CPU runs over the line items of the first NESTED_WINDOW orders, whose
+    results are the card's first rows), "rows" over the first
+    NESTED_WINDOW line items or string rows, "whole" on the first
+    NESTED_WINDOW line items on both (its result is per group)."""
+    call = pt.call_function
+
+    def lists(name):
+        return lambda d: call("hash_list", [d["li"][name],
+                                            d["li"]["l_orderkey"]])
+
+    def orders_map(d):   # map<string, int64>: each order's flag -> qty
+        qty, flag = d["qty_lists"], d["flag_lists"]
+        return pt.ListColumn(qty.offsets, pt.RecordBatch(
+            (flag.values, qty.values), ("key", "value")),
+            pt.map_(pt.string, pt.int64))
+
+    def orders_batch(d):
+        n = d["qty_lists"].length
+        return pt.RecordBatch((
+            pt.Column(torch.arange(n, device=d["qty_lists"].device),
+                      pt.int64), d["qty_lists"], d["price_lists"]),
+            ("o_orderkey", "l_quantity", "l_extendedprice"))
+
+    def long_orders(d):   # a K2 filter of a batch with list columns
+        batch = orders_batch(d)
+        more = call("greater", [call("list_value_length",
+                                     [batch["l_quantity"]]),
+                                pt.scalar(4, pt.int32)])
+        return call("filter", [batch, more])
+
+    def lineitem_struct(d):
+        h = d["head"]
+        return call("make_struct", [h["l_quantity"], h["l_extendedprice"],
+                                    h["l_returnflag"]],
+                    field_names=("l_quantity", "l_extendedprice",
+                                 "l_returnflag")).to_struct_array()
+
+    def by_flag(d):
+        h = d["head"]
+        return call("hash_tdigest", [h["l_extendedprice"], pt.Column(
+            h["l_returnflag"].data, pt.int32)], q=(0.5, 0.9))
+
+    return [
+        ("hash_list(l_quantity)", "orders", "qty_lists",
+         lists("l_quantity")),
+        ("hash_list(l_extendedprice)", "orders", "price_lists",
+         lists("l_extendedprice")),
+        ("hash_list(l_returnflag)", "orders", "flag_lists",
+         lists("l_returnflag")),
+        ("list_value_length", "orders", None, lambda d: call(
+            "list_value_length", [d["qty_lists"]])),
+        ("list_flatten", "orders", "flat", lambda d: call(
+            "list_flatten", [d["qty_lists"]])),
+        ("list_parent_indices", "orders", "parents", lambda d: call(
+            "list_parent_indices", [d["qty_lists"]])),
+        ("list_slice(1, 3)", "orders", None, lambda d: call(
+            "list_slice", [d["price_lists"]], start=1, stop=3)),
+        ("filter(list_value_length > 4)", "orders", "long", long_orders),
+        ("list_element(0)", "orders", None, lambda d: call(
+            "list_element", [d["long"]["l_extendedprice"]], index=0)),
+        ("hash_distinct(l_returnflag)", "orders", None, lambda d: call(
+            "hash_distinct", [d["li"]["l_returnflag"],
+                              d["li"]["l_orderkey"]])),
+        ("map_lookup(R, first)", "orders", None, lambda d: call(
+            "map_lookup", [orders_map(d)], query_key="R",
+            occurrence="first")),
+        ("map_lookup(R, last)", "orders", None, lambda d: call(
+            "map_lookup", [orders_map(d)], query_key="R",
+            occurrence="last")),
+        ("map_lookup(R, all)", "orders", None, lambda d: call(
+            "map_lookup", [orders_map(d)], query_key="R",
+            occurrence="all")),
+        ("make_struct", "rows", "struct", lineitem_struct),
+        ("struct_field(l_extendedprice)", "rows", "price", lambda d: call(
+            "struct_field", [d["struct"]], field="l_extendedprice")),
+        ("hash_tdigest(l_extendedprice by l_returnflag)", "whole", None,
+         by_flag),
+        ("split_pattern(c_name, #)", "rows", "name_parts", lambda d: call(
+            "split_pattern", [d["str"]["s"]], pattern="#")),
+        ("binary_join(c_name parts, #)", "rows", "name_joined",
+         lambda d: call("binary_join", [d["name_parts"], pt.scalar("#")])),
+        ("ascii_split_whitespace(l_shipmode)", "rows", "mode_parts",
+         lambda d: call("ascii_split_whitespace", [d["str"]["t"]])),
+        ("binary_join(l_shipmode parts, ' ')", "rows", "mode_joined",
+         lambda d: call("binary_join", [d["mode_parts"], pt.scalar(" ")])),
+        ("utf8_split_whitespace(l_shipmode)", "rows", "mode_parts8",
+         lambda d: call("utf8_split_whitespace", [d["str"]["t"]])),
+        ("binary_join(utf8 parts, ' ')", "rows", "mode_joined8",
+         lambda d: call("binary_join", [d["mode_parts8"], pt.scalar(" ")])),
+    ]
+
+
+def _same_strings(got, want) -> bool:
+    """Two string columns hold the same values and nulls (their pools may
+    differ): the result's codes mapped into the input's pool, on the
+    card."""
+    index = want.dictionary.index
+    remap = torch.tensor([index.get(v, -1) for v in got.dictionary.values],
+                         dtype=torch.int64).to(got.data.device)
+    codes = remap[got.data.to(torch.int64)] if len(remap) else \
+        got.data.to(torch.int64)
+    gm, wm = got.mask(), want.mask()
+    return bool(torch.equal(gm, wm)) and bool(
+        (torch.where(wm, codes, 0) ==
+         torch.where(wm, want.data.to(torch.int64), 0)).all())
+
+
+def _pivot_oracle(days, flags, qty):
+    """Exact sums of l_quantity by (ship year, l_returnflag) in numpy:
+    {year: [A, N, R]} (None where the pair has no row)."""
+    years = (np.datetime64("1970-01-01", "D") + days).astype(
+        "datetime64[Y]").astype(np.int64) + 1970
+    y0 = int(years.min())
+    slot = (years - y0) * 3 + flags
+    size = (int(years.max()) - y0 + 1) * 3
+    sums = np.bincount(slot, weights=qty, minlength=size)
+    counts = np.bincount(slot, minlength=size)
+    return {y0 + i: [int(sums[3 * i + f]) if counts[3 * i + f] else None
+                     for f in range(3)] for i in range(size // 3)}
+
+
+def phase_nested(pt, dev, counted, lt):
+    """The nested slice on the card (phase 19). Phase 12's SF10 line items
+    (59,986,052 rows, l_orderkey uniform over 15M orders) nested under
+    their orders: hash_list of l_quantity, l_extendedprice and
+    l_returnflag by l_orderkey (15M lists of ~4 items), then over them
+    list_value_length, list_flatten, list_parent_indices, list_slice(1,
+    3), a filter of the orders batch that holds the list columns (list
+    length > 4: K2 moves the flat column and the kept rows' numbers, the
+    list columns are gathered by them), list_element(0) of the kept
+    lists, hash_distinct(l_returnflag) by order, a map<string, int64> of
+    each order's flags to quantities and map_lookup("R") with first, last
+    and all; make_struct and struct_field over the line items;
+    hash_tdigest of l_extendedprice by l_returnflag at q = (0.5, 0.9);
+    split_pattern(c_name, "#") and the whitespace splits of l_shipmode
+    over NESTED_STRING_ROWS rows of compute_strings' TPC-H columns, each
+    joined back by binary_join. Each call's wall (median of 3, the first
+    one's result kept) is printed, and its result held against the same
+    call on CPU tensors (``compute_nested.same_nested``): exactly, over
+    the first NESTED_WINDOW orders (the CPU's input: their line items) or
+    rows. At full size: the lengths sum to the line items, the flattened
+    lists are l_quantity in l_orderkey order, the parent indices the
+    sorted keys, struct_field gives l_extendedprice back bit for bit, and
+    every binary_join gives its split's input back. Then a group_by on
+    (year(l_shipdate), l_returnflag) summing l_quantity, pivoted wide by
+    flag (hash_pivot_wider by year; pivot_wider of the first year),
+    against an exact numpy oracle. The K2 and K3 launches of the card's
+    calls are counted (set to 0 before, read after): K2's must be above
+    0. Prints the peak device memory. Returns the launches."""
+    from arrow1_tpu_torch import compute_strings as cs
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch.compute_nested import move, same_nested
+
+    t_phase = time.perf_counter()
+    names = ("l_orderkey", "l_quantity", "l_extendedprice", "l_returnflag",
+             "l_shipdate_days")
+    li = pt.concat_batches([b.select(names) for b in lt.batches])
+    n_li = li.num_rows
+    strs = cs.tpch_string_columns(NESTED_STRING_ROWS, dev, SF10_CUSTOMERS,
+                                  seed=0)
+    # the CPU's inputs: the line items of the first NESTED_WINDOW orders,
+    # the first NESTED_WINDOW line items and string rows
+    in_window = pt.call_function("less", [li["l_orderkey"], pt.scalar(
+        NESTED_WINDOW)])
+    cpu = {"li": move(pt.call_function("filter", [li, in_window]), "cpu"),
+           "head": move(li.slice(0, NESTED_WINDOW), "cpu"),
+           "str": {k: move(c.slice(0, NESTED_WINDOW), "cpu")
+                   for k, c in strs.items()}}
+    card = {"li": li, "head": li, "str": strs}
+    card_head = {"li": li.slice(0, NESTED_WINDOW),
+                 "head": li.slice(0, NESTED_WINDOW), "str": strs}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    for kern in counted:
+        kern.launches = 0
+    failures, walls = [], {}
+    steps = _nested_steps(pt)
+    for label, kind, key, fn in steps:
+        out, first = _wall_ms(lambda: fn(card))
+        walls[label] = statistics.median(
+            [first] + [_wall_ms(lambda: fn(card))[1] for _ in range(2)])
+        if key:
+            card[key] = out
+        want = fn(cpu)
+        if key:
+            cpu[key] = want
+        if kind == "whole":
+            out = fn(card_head)
+        where = (out.columns[0] if isinstance(out, pt.RecordBatch)
+                 else out).device
+        if where.type != torch.device(dev).type:
+            failures.append(f"{label}: ran on {where}")
+            continue
+        rows = None if kind == "whole" else (
+            want.num_rows if isinstance(want, pt.RecordBatch)
+            else want.length)
+        problem = same_nested(move(out, "cpu"), want, rows)
+        if problem:
+            failures.append(f"{label}: {problem}")
+    launches = {kern.__name__: kern.launches for kern in counted}
+    if failures:
+        raise AssertionError("nested: " + "; ".join(failures))
+
+    # at full size, on the card
+    key = li["l_orderkey"].data
+    order = torch.sort(key, stable=True)
+    qty_lists = card["qty_lists"]
+    lengths = pt.call_function("list_value_length", [qty_lists])
+    checks = {
+        "lengths sum to the line items":
+            int(lengths.data.sum()) == n_li == qty_lists.values.length,
+        "list_flatten is l_quantity in l_orderkey order": torch.equal(
+            card["flat"].data, li["l_quantity"].data[order.indices]),
+        "list_parent_indices are the sorted keys": torch.equal(
+            card["parents"].data, order.values),
+        "struct_field gives l_extendedprice back": torch.equal(
+            card["price"].data.view(torch.int64),
+            li["l_extendedprice"].data.view(torch.int64)),
+        "binary_join gives c_name back": _same_strings(
+            card["name_joined"], strs["s"]),
+        "binary_join gives l_shipmode back": _same_strings(
+            card["mode_joined"], strs["t"]),
+        "binary_join of the utf8 split gives l_shipmode back":
+            _same_strings(card["mode_joined8"], strs["t"]),
+    }
+    bad = [label for label, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError("nested at full size: " + "; ".join(bad))
+    del order, lengths
+
+    # Q1's report pivoted wide: sum(l_quantity) by (ship year, flag)
+    flag = li["l_returnflag"]
+    year = pt.call_function("year", [pt.Column(
+        li["l_shipdate_days"].data.to(torch.int32), dt.date32)])
+    for kern in counted:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    grouped = pt.group_by(pt.RecordBatch(
+        (year, flag, li["l_quantity"]), ("year", "l_returnflag",
+                                         "l_quantity")),
+        ["year", "l_returnflag"], [("l_quantity", "sum")])
+    first_year = int(grouped["year"].data.min())
+    wide = pt.call_function("hash_pivot_wider", [
+        grouped["l_returnflag"], grouped["l_quantity_sum"], pt.Column(
+            grouped["year"].data - first_year, pt.int64)],
+        key_names=NESTED_FLAGS)
+    one = pt.call_function("filter", [grouped, pt.call_function(
+        "equal", [grouped["year"], pt.scalar(first_year)])])
+    row = pt.call_function("pivot_wider", [one["l_returnflag"],
+                                           one["l_quantity_sum"]],
+                           key_names=NESTED_FLAGS)
+    torch.cuda.synchronize()
+    pivot_ms = (time.perf_counter() - t0) * 1e3
+    for kname, count in ((k.__name__, k.launches) for k in counted):
+        launches[kname] += count
+    host = {c: li[c].data.cpu().numpy() for c in
+            ("l_shipdate_days", "l_quantity")}
+    want = _pivot_oracle(host["l_shipdate_days"],
+                         flag.data.cpu().numpy().astype(np.int64),
+                         host["l_quantity"])
+    codes = {v: i for i, v in enumerate(flag.dictionary.values)}
+    got = {first_year + i: [wide[f].to_pylist()[i] for f in NESTED_FLAGS]
+           for i in range(wide.num_rows)}
+    want = {y: [vals[codes[f]] for f in NESTED_FLAGS]
+            for y, vals in want.items()}
+    if got != want or [row[f].to_pylist()[0] for f in NESTED_FLAGS] != \
+            want[first_year]:
+        raise AssertionError("nested: the pivoted Q1 report differs from "
+                             "numpy")
+    mem = torch.cuda.max_memory_allocated()
+    if launches["compact"] <= 0:
+        raise AssertionError("the nested phase launched no K2")
+    print(f"nested: {qty_lists.length} orders' lists over {n_li} line items "
+          f"and {NESTED_STRING_ROWS} string rows; {len(steps)} calls on the "
+          f"card, each equal to the CPU over the first {NESTED_WINDOW} "
+          f"orders or rows; full-size checks held ({', '.join(checks)}); "
+          f"inputs built in {build_s:.1f} s", flush=True)
+    print("nested: card wall ms (median of 3): " + ", ".join(
+        f"{label} {ms:.3f}" for label, ms in walls.items()), flush=True)
+    print(f"nested: Q1's quantities by (year, flag) pivoted wide, "
+          f"{wide.num_rows} years x {len(NESTED_FLAGS)} flags, equal to "
+          f"numpy; group_by + hash_pivot_wider + pivot_wider wall "
+          f"{pivot_ms:.3f} ms (one call); peak device memory "
+          f"{mem / 2**30:.2f} GiB; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def phase_probe_device_times(device_calls, rows):
@@ -2548,6 +2856,11 @@ def main() -> int:
     decimal_launches = phase_decimal(pt, dev, all_kernels, sf10_lineitem)
     print(f"decimal main path launches: {decimal_launches}", flush=True)
     for kname, count in decimal_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    nested_launches = phase_nested(pt, dev, all_kernels, sf10_lineitem)
+    print(f"nested main path launches: {nested_launches}", flush=True)
+    for kname, count in nested_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     del sf10_lineitem
     torch.cuda.empty_cache()

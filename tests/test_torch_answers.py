@@ -10,8 +10,8 @@ them into parts (``reference_answers(part)``, listed as ``module:part``),
 which run in workers of their own. The first fixture that asks (the first
 port test file's, ``test_torch_compaction``, calls ``start`` itself)
 starts a pool of spawned processes that computes the answers of every
-file of ``MODULES`` this test run has imported, in run order, while the
-tests run; each file then waits only for its own. A worker imports the
+file of ``MODULES`` this test run has imported, in ``MODULES`` order,
+while the tests run; each file then waits only for its own. A worker imports the
 test module to compute; the results come back pickled (the JAX package's
 dictionary pools, which hold a lock, pickle as their values). Without a
 pool, or if a worker fails, a file's answers are computed in the test
@@ -34,13 +34,16 @@ _jax_column = importlib.import_module("arrow1_tpu.column")
 copyreg.pickle(_jax_column.Dictionary,
                lambda d: (_jax_column.Dictionary, (d.values,)))
 
-# the files whose answers the workers compute, in the order they run
+# the files whose answers the workers compute, in the order they start:
+# run order, but the sweep's (about 30 s of one core, for a file that
+# runs late) right after the decimal parts, so that no file waits long
 MODULES = ("test_torch_decimal:0", "test_torch_decimal:1",
-           "test_torch_decimal:2", "test_torch_fused", "test_torch_groupby",
-           "test_torch_hashtable", "test_torch_join", "test_torch_pipeline",
+           "test_torch_decimal:2", "test_torch_registry_sweep",
+           "test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
+           "test_torch_join", "test_torch_nested:0", "test_torch_nested:1",
+           "test_torch_nested:2", "test_torch_pipeline",
            "test_torch_port_faults", "test_torch_query",
-           "test_torch_registry_sweep", "test_torch_strings",
-           "test_torch_tail", "test_torch_temporal")
+           "test_torch_strings", "test_torch_tail", "test_torch_temporal")
 # a few workers beside the test process: the answers of all files take
 # about a minute of one core
 WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))

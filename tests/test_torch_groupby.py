@@ -42,7 +42,6 @@ from arrow1_tpu.ops.groupby import _mxu_group_by
 import arrow1_tpu_torch as pt
 import arrow1_tpu_torch.kernels.segsum2 as pt_segsum2
 import arrow1_tpu_torch.ops.groupby as pt_groupby
-from arrow1_tpu_torch.errors import NotImplementedError_
 from arrow1_tpu_torch.ops.groupby import _dense_key_group_by
 from test_torch_answers import answers_of
 
@@ -340,10 +339,21 @@ def test_sorted_path_matches_jax(jax_results):
 
 
 def test_group_by_waits_for_the_nested_slice():
-    with pytest.raises(NotImplementedError_):
-        pt.group_by(_port(_B), ["k"], [("v", "list")])
-    assert "hash_list" not in pt.list_functions()
-    assert "hash_distinct" not in pt.list_functions()
+    """Since the nested slice, the list and distinct aggregates give each
+    group's values (in row order) and distinct non-null values, as
+    pyarrow's group_by does (whose distinct values come in an order of
+    its hash table's: compared as sets)."""
+    out = pt.group_by(_port(_B), ["k"], [("v", "list"), ("v", "distinct")])
+    want = pa.Table.from_batches([_B.to_arrow()]).group_by(
+        "k", use_threads=False).aggregate(
+        [("v", "list"), ("v", "distinct")])
+
+    def rows(t):
+        return sorted(((r["k"], r["v_list"], sorted(r["v_distinct"]))
+                       for r in t.to_pylist()), key=repr)
+
+    assert rows(out.to_arrow()) == rows(want)
+    assert {"hash_list", "hash_distinct"} <= set(pt.list_functions())
 
 
 # ---- registry functions ---------------------------------------------------

@@ -15,7 +15,6 @@ import torch
 
 import arrow1_tpu_torch as pt
 from arrow1_tpu_torch import dtypes as dt
-from arrow1_tpu_torch.errors import NotImplementedError_
 from arrow1_tpu_torch.kernels import (build, compaction, compaction_split,
                                      probes)
 
@@ -67,7 +66,9 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.ops.temporal\n"
             "import arrow1_tpu_torch.utils.tzif\n"
             "import arrow1_tpu_torch.compute_temporal\n"
-            "assert len(arrow1_tpu_torch.list_functions()) == 289\n"
+            "import arrow1_tpu_torch.ops.nested\n"
+            "import arrow1_tpu_torch.compute_nested\n"
+            "assert len(arrow1_tpu_torch.list_functions()) == 307\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -128,6 +129,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pt.interop.column_from_arrow(pa.array(data["k"]))
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.interop.record_batch_from_arrow(pa.record_batch(data))
+    # the nested ingest and constructors
+    for arr in (pa.array([[1, 2], None]), pa.array([{"a": 1}]),
+                pa.array([[1, 2]], pa.list_(pa.int64(), 2)),
+                pa.array([[("k", 1)]], pa.map_(pa.string(), pa.int64())),
+                pa.UnionArray.from_sparse(pa.array([0], pa.int8()),
+                                          [pa.array([1])])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pt.interop.column_from_arrow(arr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.fixed_size_list_column(np.zeros((2, 3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.from_reference_arrays(["l"], [{
+            "type": pt.list_(pt.int64), "offsets": np.array([0, 1]),
+            "values": (np.array([1]), None, None), "validity": None}], None)
     # the query layer runs where its source's tensors are: a source made
     # without naming the CPU wants CUDA
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -162,11 +177,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_later_slice_types_raise():
-    for kind in ("list", "struct"):
-        with pytest.raises(NotImplementedError_):
-            dt.DataType(kind)
-    with pytest.raises(NotImplementedError_):
-        dt.from_arrow(pa.list_(pa.int64()))
+    # every type of the JAX package is a type of the port since the nested
+    # slice: nested types construct and map to arrow both ways
+    for t in (pa.list_(pa.int64()), pa.large_list(pa.string()),
+              pa.list_(pa.float64(), 3), pa.map_(pa.string(), pa.int64()),
+              pa.struct([("a", pa.int64()), ("b", pa.list_(pa.string()))]),
+              pa.union([pa.field("i", pa.int64()),
+                        pa.field("s", pa.string())], "sparse"),
+              pa.union([pa.field("i", pa.int64())], "dense", [3])):
+        assert dt.to_arrow(dt.from_arrow(t)) == t
+        assert dt.from_arrow(t).is_nested
+        with pytest.raises(TypeError):
+            dt.from_arrow(t).physical_dtype()
+    assert pt.list_(pt.int64) == dt.DataType("list", fields=(("item",
+                                                               dt.int64),))
+    with pytest.raises(TypeError):
+        dt.DataType("no such kind")
     # decimals are types of the port since the decimal slice
     assert pt.decimal128(15, 2) == dt.from_arrow(pa.decimal128(15, 2))
     assert dt.to_arrow(pt.decimal256(76, 0)) == pa.decimal256(76, 0)

@@ -20,7 +20,10 @@ pyarrow, held against both on inputs of a few rows:
 - a pyarrow DictionaryArray through the three ingest functions (string
   and numeric pools); the dense-path integer mean, and the compiled and
   streaming ones, which divided the wrapped int64 sum; the compiled
-  group_by's key of a group of -0.0 rows, which came out as 0.0.
+  group_by's key of a group of -0.0 rows, which came out as 0.0;
+- extract_regex and extract_regex_span, which gave RecordBatches (the
+  span as ``g.offset``/``g.length`` columns) where the JAX package gives
+  a struct column (of fixed_size_list<int32>[2] for the span).
 
 Integers, bools, validity and the sign of zero must match exactly. Where
 the JAX package and pyarrow disagree, pyarrow decides, and the test says
@@ -117,6 +120,8 @@ DICT_KEYS = {"string": ["a", "b", "a", None], "int": [10, 20, 10, None],
 # k = [1, 1], v = [2^62, 2^62 + 1]: the int64 sum wraps to -(2^63 - 1);
 # the mean is of the exact sum, 2^62 + 0.5
 WIDE_MEAN = 4.611686018427388e18
+EXTRACT_INPUT = pa.array(["ab12", "x9", None, "cd", "é7", "ab12"])
+EXTRACT_PATTERN = "(?P<letters>[a-zé]+)(?P<digits>[0-9])?"
 NEG_ZERO = pa.record_batch({"f": pa.array([-0.0, 1.0, -0.0]),
                             "v": pa.array([1, 2, 3])})
 U64_SORT = [(1 << 63) + 5, 3, None, (1 << 64) - 1]
@@ -172,6 +177,10 @@ def reference_answers():
     jobs["neg_zero"] = lambda: a1t.interop.record_batch_to_arrow(
         JaxPipelineBuilder().group_by(["f"], [("v", "sum")]).compile()(
             nz)).to_pydict()
+    for fn in ("extract_regex", "extract_regex_span"):
+        jobs[fn] = lambda fn=fn: a1t.call_function(
+            fn, [a1t.column(EXTRACT_INPUT)],
+            pattern=EXTRACT_PATTERN).to_arrow()
     with ThreadPoolExecutor(8) as ex:
         futures = {key: ex.submit(job) for key, job in jobs.items()}
         return {key: f.result() for key, f in futures.items()}
@@ -624,3 +633,24 @@ def test_grouped_variance_does_not_cancel(path):
     for name, values in got.items():
         assert values == pytest.approx(VAR_WANT[name], rel=1e-12,
                                        abs=1e-12), (path, name, values)
+
+
+@pytest.mark.parametrize("fn", ["extract_regex", "extract_regex_span"])
+def test_extract_regex_gives_a_struct_column(fn, jax_results):
+    """A struct column, field for field the JAX package's: the string
+    groups, or each group's [byte offset, byte length] (a row that does
+    not match is null; a group that took no part is [-1, 0])."""
+    got = pt.call_function(fn, [pt.interop.column_from_arrow(
+        EXTRACT_INPUT, device="cpu")], pattern=EXTRACT_PATTERN)
+    assert isinstance(got, pt.StructColumn)
+    want = jax_results[fn]
+    assert got.to_arrow().type == want.type
+    assert got.to_pylist() == want.to_pylist()
+    rows = pc.call_function(fn, [EXTRACT_INPUT], pc.ExtractRegexOptions(
+        EXTRACT_PATTERN)).to_pylist()
+    if fn == "extract_regex_span":
+        # pyarrow 25 gives null for a group that took no part in the
+        # match; both packages give [-1, 0] (ROADMAP Queue 3)
+        rows = [r if r is None else {g: [-1, 0] if v is None else v
+                                     for g, v in r.items()} for r in rows]
+    assert got.to_pylist() == rows

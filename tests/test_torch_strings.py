@@ -15,10 +15,11 @@ Strings, codes, validity and integers must be equal exactly: no case has
 a tolerance. Where the JAX package is wrong against pyarrow.compute
 (ROADMAP Queue 3, ``REFERENCE_FAULTS``) the port is held to pyarrow.
 
-``extract_regex`` gives a RecordBatch (the port's struct form), held
-field by field against the JAX package's struct children;
-``extract_regex_span`` gives ``g.offset`` and ``g.length`` per named
-group g, held against the JAX package's [offset, length] lists.
+``extract_regex`` gives a struct of one string field per named group and
+``extract_regex_span`` a struct of one fixed_size_list<int32>[2] per
+group, both held as arrow values against the JAX package's structs. The
+split family and ``binary_join`` (list inputs and results) are held in
+tests/test_torch_nested.py.
 
 The JAX answers are computed once, by the sweep's ``jax_answers`` (the
 calls traced to a few ``jax.jit`` programs, the rest eagerly), in a
@@ -252,22 +253,6 @@ def _port(inp, case):
         return type(e)
 
 
-def _rows_of_spans(batch):
-    """extract_regex_span's RecordBatch as the struct's rows: None where
-    the value did not match, else {group: [offset, length]}."""
-    cols = dict(zip(batch.names, (c.to_pylist() for c in batch.columns)))
-    groups = [n[:-len(".offset")] for n in batch.names
-              if n.endswith(".offset")]
-    rows = []
-    for i in range(batch.num_rows):
-        if cols[groups[0] + ".offset"][i] is None:
-            rows.append(None)
-        else:
-            rows.append({g: [cols[g + ".offset"][i], cols[g + ".length"][i]]
-                         for g in groups})
-    return rows
-
-
 @pytest.mark.parametrize("case", list(CASES))
 def test_strings_match_the_reference(case, jax_results, port_inputs):
     got, want = _port(port_inputs, case), jax_results[case]
@@ -275,27 +260,22 @@ def test_strings_match_the_reference(case, jax_results, port_inputs):
         assert isinstance(got, type), (case, "should raise", got)
         return
     assert not isinstance(got, type), (case, got, want)
-    name = CASES[case][0]
-    if name == "extract_regex":
-        assert isinstance(got, pt.RecordBatch), case
-        assert list(got.names) == [f.name for f in want.type], case
-        for i, col in enumerate(got.columns):
-            assert_same(col, want.field(i), case)
-        assert [any(v is not None for v in row) or None
-                for row in zip(*(c.to_pylist() for c in got.columns))] == \
-            [None if r is None else True for r in want.to_pylist()], case
-    elif name == "extract_regex_span":
-        assert _rows_of_spans(got) == want.to_pylist(), case
-    else:
-        assert_same(got, want, case)
+    if CASES[case][0] in ("extract_regex", "extract_regex_span"):
+        assert isinstance(got, pt.StructColumn), case
+    assert_same(got, want, case)
 
 
 def test_every_string_name_has_a_case():
     strings = {n for n in pt.list_functions()
                if pt.registry.function_registry.get(n).exec.__module__
                == "arrow1_tpu_torch.ops.strings"}
-    assert strings == set(cs.CALLS)
-    assert len(strings) == 73
+    # the split family and binary_join take or give lists: their cases
+    # are in tests/test_torch_nested.py
+    lists = {"split_pattern", "split_pattern_regex",
+             "ascii_split_whitespace", "utf8_split_whitespace",
+             "binary_join"}
+    assert strings == set(cs.CALLS) | lists
+    assert len(cs.CALLS) == 73 and len(strings) == 78
 
 
 def test_a_string_compared_with_a_number_raises(port_inputs):
