@@ -95,7 +95,7 @@ def unscaled_ints(col: "Column") -> list:
     """A decimal column's unscaled integers as Python ints (host copy):
     the limbs, least significant first, the top one signed."""
     lo = col.data.cpu().numpy().view(np.uint64).tolist()
-    hi = col.data2.cpu().numpy().reshape(col.length, -1)
+    hi = col.data2.cpu().numpy().reshape(col.length, col.dtype.limbs - 1)
     upper = [r.tolist() for r in hi.view(np.uint64).T]
     top = hi[:, -1].tolist()   # signed
     out = []

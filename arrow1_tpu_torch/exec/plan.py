@@ -10,9 +10,9 @@ Batches flow eagerly as device-resident RecordBatches; pipeline breakers
 (aggregate, order_by, the join's build side) accumulate state and flush on
 input_finished, the consume/merge/finalize shape of kernel.h:637-676.
 
-The join concatenates its build batches and runs ``ops.join.join`` once
-per probe batch, so the hash table is built again for every probe batch,
-as the reference does.
+The join concatenates its build batches and builds them once
+(``ops.join.BuiltJoin``); each probe batch is probed against that one
+hash table.
 """
 
 from __future__ import annotations
@@ -185,9 +185,11 @@ class AggregateNode(ExecNode):
 
 
 class JoinNode(ExecNode):
-    """Hash join: the build side (input 1) accumulates; probe batches that
-    arrive before the build side has finished wait, and are joined in
-    order once it has."""
+    """Hash join: the build side (input 1) accumulates and is built once
+    (``ops.join.BuiltJoin``) when it has finished; probe batches that
+    arrive before that wait, and are joined in order once it has. The
+    build side's rows of a right or full outer, right semi or right anti
+    join follow the last probe batch."""
 
     def __init__(self, plan, probe, build, keys, right_keys=None,
                  join_type="inner", label="join"):
@@ -196,42 +198,47 @@ class JoinNode(ExecNode):
         self.right_keys = right_keys
         self.join_type = join_type
         self._build: List[RecordBatch] = []
-        self._build_done = False
+        self._joiner = None
         self._probe_pending: List[Tuple[RecordBatch, int]] = []
         self._probe_total: Optional[int] = None
-        self._emitted = 0
 
     def input_received(self, node, batch, seq):
         if node is self.inputs[1]:
             self._build.append(batch)
             return
-        if not self._build_done:
+        if self._joiner is None:
             self._probe_pending.append((batch, seq))
             return
         self._probe(batch, seq)
 
     def _probe(self, batch, seq):
-        from ..ops.join import join
+        out = self._joiner.probe(batch)
+        if out is not None:
+            self._emit(out, seq)
 
-        if not self._build:
-            raise Invalid("join: empty build side")
-        build = concat_batches(self._build)
-        self._emit(join(batch, build, self.keys, self.right_keys,
-                        self.join_type), seq)
-        self._emitted += 1
+    def _done(self):
+        tail = self._joiner.finish()
+        if tail is not None:
+            self._emit(tail, self._probe_total)
+        self._finish(self._probe_total + (tail is not None))
 
     def input_finished(self, node, total):
         if node is self.inputs[1]:
-            self._build_done = True
+            from ..ops.join import BuiltJoin
+
+            if not self._build:
+                raise Invalid("join: empty build side")
+            self._joiner = BuiltJoin(concat_batches(self._build), self.keys,
+                                     self.right_keys, self.join_type)
             for batch, seq in self._probe_pending:
                 self._probe(batch, seq)
             self._probe_pending.clear()
             if self._probe_total is not None:
-                self._finish(self._probe_total)
+                self._done()
             return
         self._probe_total = total
-        if self._build_done:
-            self._finish(total)
+        if self._joiner is not None:
+            self._done()
 
 
 def sort_batch(batch: RecordBatch, sort_keys) -> RecordBatch:

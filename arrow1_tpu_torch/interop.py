@@ -349,7 +349,7 @@ def column_to_arrow(col: Column):
         return pa.Array.from_buffers(dt.to_arrow(col.dtype), n, bufs)
     if col.dtype.is_decimal:   # the limbs as 16/32-byte words
         n = col.length
-        hi = col.data2.cpu().numpy().reshape(n, -1)
+        hi = col.data2.cpu().numpy().reshape(n, col.dtype.limbs - 1)
         words = np.empty((n, 1 + hi.shape[1]), dtype="<i8")
         words[:, 0] = col.data.cpu().numpy()
         words[:, 1:] = hi

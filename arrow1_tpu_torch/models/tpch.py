@@ -12,7 +12,8 @@ from ..expr import field
 from ..query import query
 
 __all__ = ["q1_pricing_summary", "q3_shipping_priority",
-           "q5_local_supplier_volume", "q6_forecast"]
+           "q5_local_supplier_volume", "q6_forecast", "q1_distributed",
+           "q3_distributed"]
 
 
 def q1_pricing_summary(lineitem, ship_cutoff_days: int = 10000):
@@ -51,6 +52,37 @@ def q6_forecast(lineitem, min_discount: float = 0.02,
                     & (field("l_quantity") < max_quantity))
             .group_by(["l_returnflag"], [("l_extendedprice", "sum")])
             .to_batch())
+
+
+def q1_distributed(lineitem, mesh=None, ship_cutoff_days: int = 10000):
+    """Q1 as one distributed program over the ranks (exec/dist_compiled.py:
+    filter -> group_by -> sort with the shuffle inside); ``lineitem`` is
+    the global batch, the same on every rank."""
+    from ..exec.dist_compiled import DistPipelineBuilder
+
+    return (DistPipelineBuilder(mesh)
+            .filter(field("l_shipdate_days") <= ship_cutoff_days)
+            .group_by(["l_returnflag"],
+                      [("l_quantity", "sum"), ("l_extendedprice", "sum"),
+                       ("l_quantity", "count")])
+            .sort([("l_returnflag", "ascending")])
+            .compile())(lineitem)
+
+
+def q3_distributed(lineitem, orders, mesh=None, fanout: int = 2,
+                   shuffle_cap=None, top_n: int = 10):
+    """Q3 as one distributed program: the join (both sides shuffled), the
+    group_by (a second shuffle), the sort and the limit."""
+    from ..exec.dist_compiled import DistPipelineBuilder
+
+    return (DistPipelineBuilder(mesh)
+            .join(orders, keys=["l_orderkey"], right_keys=["o_orderkey"],
+                  fanout=fanout, shuffle_cap=shuffle_cap)
+            .group_by(["o_orderpriority"],
+                      [("l_extendedprice", "sum"), ("l_orderkey", "count")])
+            .sort([("l_extendedprice_sum", "descending")])
+            .limit(top_n)
+            .compile())(lineitem)
 
 
 def q5_local_supplier_volume(lineitem, orders, customers, top_n: int = 10):

@@ -334,7 +334,7 @@ def _min_max_exec(args, options: ScalarAggregateOptions, ctx):
                                                device=col.device),
                           dictionary=col.dictionary,
                           data2=None if col.data2 is None else
-                          torch.zeros_like(col.data2[:1]))
+                          col.data2.new_zeros((1,) + col.data2.shape[1:]))
 
         return RecordBatch((null(), null()), ("min", "max"))
     m = col.mask()

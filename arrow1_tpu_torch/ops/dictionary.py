@@ -22,10 +22,15 @@ __all__ = ["unify_dictionaries", "unify_pair", "reencode_against",
 
 
 def _remap(col: Column, remap: np.ndarray) -> torch.Tensor:
+    """The codes through ``remap``; a null slot's code is not read (it
+    need not index the pool) and becomes 0."""
     if len(remap) == 0:
         return col.data
     table = torch.from_numpy(remap).to(col.device)
-    return table[col.data.long()]
+    codes = col.data.long()
+    if col.validity is not None:
+        codes = torch.where(col.validity, codes, 0)
+    return table[codes]
 
 
 def unify_dictionaries(cols: Sequence[Column]

@@ -6,19 +6,23 @@ nothing; every probe-side match pair is emitted; outer variants emit
 unmatched rows with nulls on the other side. Row order is deterministic:
 probe (left) order, and each probe's matches in build (right) order.
 
-1. A single non-float key column joins on its raw normalized u64 key
-   (``normalize_sort_key``'s total-order bits) through the bucketed hash
-   table (kernels/hashtable.py): one build-side sort and a gather probe.
-   Every other key (floats, decimals, several columns; a decimal key is
-   its limbs, both sides at their common type) collapses to one dense id
-   per row by grouping the union of both sides' key planes
-   (``ops/hash.grouping_by_keys``), and the ids meet in the merged
-   sort-merge probe (``ops/padded.probe_ranges_sortmerge``). In a join,
-   -0.0 and +0.0 are different keys and all NaNs are one key.
+1. The right (build) side is built once (``BuiltJoin``): its key
+   columns become canonical planes (a string its code in the build's
+   pool, a float its class and total-order bits, a decimal its limbs at
+   the two sides' common type, any other key its normalized bits). One
+   plane is the key of the bucketed hash table (kernels/hashtable.py: one
+   build-side sort, a gather probe); several collapse to the id of the
+   build's distinct key row, which a probe row finds through one merged
+   sort (``ops/padded.probe_ranges_sortmerge``) against the distinct
+   rows. In a join, -0.0 and +0.0 are different keys and all NaNs are one
+   key. The query layer probes one build with every batch of a Table;
+   ``join`` probes it with one batch.
 2. The total match count is read on the host (it sizes the result, as
    filter does), then the matches expand: each probe row repeated by its
    count (``repeat_interleave``), each copy picking the next build row of
-   its range.
+   its range. A build row's matched flag is the OR of the probe rows'
+   ranges over the build order; the build side's own rows (right semi
+   and anti, the unmatched rows of full outer) come after the probe's.
 
 The dispatch is the reference's ``auto`` mode; its environment switches
 (``A1T_JOIN``, ``A1T_JOIN_PROBE_CHUNK``) are not carried over, and the
@@ -30,29 +34,28 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from ..column import Column
 from ..errors import Invalid
 from ..kernels.hashtable import (MAX_BITS, join_build, join_probe,
                                  table_bits_for)
-from ..kernels.radix import _SIGN, sort_permutation
-from ..table import RecordBatch
+from ..kernels.radix import _SIGN, decimal_limb_keys, sort_permutation
+from ..table import RecordBatch, concat_batches
 from .common import collapse_validity
 from .decimal import common_decimal_type, decimal_cast
-from .dictionary import unify_pair
+from .dictionary import _remap, unify_pair
 from .hash import grouping_by_keys
 from .padded import last_marked, probe_ranges_sortmerge
 from .selection import gather_batch
 from .sort import normalize_sort_key
 
-__all__ = ["join", "join_indices", "join_asof", "key_planes",
-           "key_validity"]
+__all__ = ["join", "join_asof", "key_planes", "key_validity",
+           "BuiltJoin"]
 
 _JOIN_TYPES = ("inner", "left outer", "right outer", "full outer",
                "left semi", "left anti", "right semi", "right anti")
-_I32_MAX = (1 << 31) - 1
-_I32_MIN = -(1 << 31)
 
 
 def key_planes(lc: Column, rc: Column):
@@ -88,34 +91,23 @@ def key_validity(batch: RecordBatch, names: Sequence[str]):
 
 
 def _key_ids(left: RecordBatch, right: RecordBatch,
-             left_keys: Sequence[str], right_keys: Sequence[str],
-             allow_raw: bool = False):
-    """Join keys of both sides and each side's key validity.
-
-    Returns (lkeys, rkeys, lvalid, rvalid, raw). With ``allow_raw`` and a
-    single non-float key column the keys are its raw normalized u64 bits
-    (``raw`` True; nullness lives in the validity masks only). Otherwise
-    they are dense int32 ids from grouping the union of both sides."""
+             left_keys: Sequence[str], right_keys: Sequence[str]):
+    """Dense int32 ids of both sides' join keys, from grouping the union
+    of their key planes (equal keys, equal ids), and each side's key
+    validity: (lids, rids, lvalid, rvalid)."""
     if len(left_keys) != len(right_keys):
         raise Invalid("join: key count mismatch")
     pairs = []   # (plane over both sides, bits) for grouping_by_keys
-    n_float = 0   # keys of more than one plane: floats, decimals
     for lk, rk in zip(left_keys, right_keys):
-        lc = left.column(lk)
-        n_float += lc.dtype.is_floating or lc.dtype.is_decimal
-        lkeys, rkeys = key_planes(lc, right.column(rk))
+        lkeys, rkeys = key_planes(left.column(lk), right.column(rk))
         for i, (lp, rp) in enumerate(zip(lkeys, rkeys)):
             # a class plane holds 0 (value), 1 (NaN) or 2 (null)
             bits = 2 if len(lkeys) == 2 and i == 0 else 64
             pairs.append((torch.cat([lp, rp]), bits))
     n = left.num_rows
-    lvalid = key_validity(left, left_keys)
-    rvalid = key_validity(right, right_keys)
-    if allow_raw and len(left_keys) == 1 and n_float == 0:
-        u = pairs[-1][0]
-        return u[:n], u[n:], lvalid, rvalid, True
     gids, _, _ = grouping_by_keys(pairs)
-    return gids[:n], gids[n:], lvalid, rvalid, False
+    return (gids[:n], gids[n:], key_validity(left, left_keys),
+            key_validity(right, right_keys))
 
 
 def _build_table(build_u64, live):
@@ -139,98 +131,8 @@ def _hash_probe_ranges(probe_u64, build_u64, build_valid):
     return order, lo.to(torch.int64), counts
 
 
-def _hash_matched(test_u64, table_u64, table_valid):
-    """bool[n]: does each test key match at least one valid table key."""
-    _, table = _build_table(table_u64, table_valid)
-    _, counts = join_probe(table, test_u64)
-    return counts > 0
-
-
-def _sorted_matched(test_ids, table_ids, table_valid):
-    """bool[n] of the id path: binary searches of each test id in the
-    sorted table ids (null table keys painted with an id no test has)."""
-    if table_valid is not None:
-        table_ids = torch.where(table_valid, table_ids, _I32_MIN)
-    table_sorted = torch.sort(table_ids.to(torch.int64)).values
-    t = test_ids.to(torch.int64)
-    lo = torch.searchsorted(table_sorted, t, side="left")
-    hi = torch.searchsorted(table_sorted, t, side="right")
-    return (hi - lo) > 0
-
-
 def _nonzero(mask: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(mask).squeeze(1)
-
-
-def join_indices(left: RecordBatch, right: RecordBatch,
-                 left_keys: Sequence[str], right_keys: Sequence[str],
-                 join_type: str = "inner"):
-    """(left_idx, right_idx, left_valid, right_valid) row-index tensors
-    describing the join result (int64 indices, bool validities, None where
-    a side is absent or all valid)."""
-    if join_type not in _JOIN_TYPES:
-        raise Invalid(f"unsupported join type {join_type!r}")
-    lids, rids, lvalid, rvalid, raw = _key_ids(
-        left, right, left_keys, right_keys, allow_raw=True)
-    nl, nr = left.num_rows, right.num_rows
-    if raw:
-        build_order, lo, counts = _hash_probe_ranges(lids, rids, rvalid)
-    else:
-        # null build keys can never match: paint them with an id no probe
-        # has (ids are dense int32)
-        if rvalid is not None:
-            rids = torch.where(rvalid, rids, _I32_MAX)
-        build_order, lo, counts = probe_ranges_sortmerge(
-            lids.to(torch.int64), rids.to(torch.int64))
-    counts = counts.to(torch.int32)
-    if lvalid is not None:
-        counts = torch.where(lvalid, counts, 0)   # null probes match nothing
-    matched = counts > 0
-
-    def right_matched():
-        if raw:
-            rm = _hash_matched(rids, lids, lvalid)
-        else:
-            rm = _sorted_matched(rids, lids, lvalid)
-        return rm if rvalid is None else (rm & rvalid)
-
-    if join_type in ("left semi", "left anti"):
-        mask = matched if join_type == "left semi" else ~matched
-        return _nonzero(mask), None, None, None
-    if join_type in ("right semi", "right anti"):
-        rm = right_matched()
-        mask = rm if join_type == "right semi" else ~rm
-        return None, _nonzero(mask), None, None
-
-    outer_left = join_type in ("left outer", "full outer")
-    emit = (counts.clamp(min=1) if outer_left else counts).to(torch.int64)
-    total = int(emit.sum())   # the host sync that sizes the result
-    dev = emit.device
-    left_idx = torch.repeat_interleave(torch.arange(nl, device=dev), emit,
-                                       output_size=total)
-    offsets = torch.cumsum(emit, 0) - emit
-    within = torch.arange(total, device=dev) - offsets[left_idx]
-    has_match = matched[left_idx]
-    pos = lo[left_idx] + torch.minimum(
-        within, (counts[left_idx].to(torch.int64) - 1).clamp(min=0))
-    if nr:
-        right_idx = build_order[pos.clamp(0, nr - 1)]
-    else:
-        right_idx = torch.zeros(total, dtype=torch.int64, device=dev)
-    right_valid = has_match if outer_left else None
-
-    if join_type == "full outer":
-        unmatched = _nonzero(~right_matched())
-        n_un = unmatched.shape[0]
-        left_idx = torch.cat([left_idx, left_idx.new_zeros(n_un)])
-        right_idx = torch.cat([right_idx, unmatched])
-        left_valid = torch.cat([
-            torch.ones(total, dtype=torch.bool, device=dev),
-            torch.zeros(n_un, dtype=torch.bool, device=dev)])
-        right_valid = torch.cat([
-            right_valid, torch.ones(n_un, dtype=torch.bool, device=dev)])
-        return left_idx, right_idx, left_valid, right_valid
-    return left_idx, right_idx, None, right_valid
 
 
 def _coalesce(kcol: Column, rcol: Column) -> Column:
@@ -298,26 +200,209 @@ def join(left: RecordBatch, right: RecordBatch, keys, right_keys=None,
                 names.append(n + right_suffix)
                 cols.append(flipped.column(n + right_suffix))
         return RecordBatch(tuple(cols), tuple(names))
-    li, ri, lv, rv = join_indices(left, right, keys, right_keys, join_type)
-    if join_type in ("left semi", "left anti"):
-        return gather_batch(left, li)
-    if join_type in ("right semi", "right anti"):
-        return gather_batch(right, ri)
-    names: List[str] = []
-    cols: List[Column] = []
-    for lk, rk in zip(keys, right_keys):
-        kcol = _take(left.column(lk), li, lv)
-        if join_type == "full outer":
-            kcol = _coalesce(kcol, _take(right.column(rk), ri, rv))
-        names.append(lk)
-        cols.append(kcol)
-    for batch, skip, idx, validity, suffix in (
-            (left, set(keys), li, lv, left_suffix),
-            (right, set(right_keys), ri, rv, right_suffix)):
-        n, c = _payload(batch, skip, idx, validity, suffix)
-        names += n
-        cols += c
-    return RecordBatch(tuple(cols), tuple(names))
+    joiner = BuiltJoin(right, keys, right_keys, join_type, left_suffix,
+                       right_suffix)
+    parts = [b for b in (joiner.probe(left), joiner.finish())
+             if b is not None]
+    return parts[0] if len(parts) == 1 else concat_batches(parts)
+
+
+class BuiltJoin:
+    """A join whose right (build) side is built once, then probed batch
+    by batch: the query layer's join over a Table of batches.
+
+    The build keys become canonical planes that no probe batch changes (a
+    string key its code in the build's pool, a probe value missing there
+    -1; a float key its class and total-order bits; a decimal key its
+    limbs at the two sides' common type; any other key its normalized
+    bits). One plane is the hash key; several collapse to the id of the
+    build's distinct key row, which a probe row finds through one merged
+    sort of its batch against the distinct rows. The hash table is built
+    once, at the first probe.
+
+    ``probe(batch)`` returns the batch's rows of the result (None for the
+    right semi and anti joins): for inner, left outer and the left semi
+    and anti joins the rows ``join`` gives for that batch; for right and
+    full outer the batch's matches (and, for full outer, its unmatched
+    probe rows). Each build row's matched flag is kept across the
+    batches, and ``finish()`` returns the build side's rows once: matched
+    (right semi), unmatched (right anti), or unmatched with null probe
+    columns (right and full outer); None for the other types."""
+
+    _RIGHT = ("right outer", "full outer", "right semi", "right anti")
+
+    def __init__(self, right: RecordBatch, keys, right_keys=None,
+                 join_type: str = "inner", left_suffix: str = "",
+                 right_suffix: str = ""):
+        if join_type not in _JOIN_TYPES:
+            raise Invalid(f"unsupported join type {join_type!r}")
+        self.right = right
+        self.keys = [keys] if isinstance(keys, str) else list(keys)
+        self.right_keys = list(right_keys or self.keys)
+        if len(self.keys) != len(self.right_keys):
+            raise Invalid("join: key count mismatch")
+        self.join_type = join_type
+        self.suffixes = (left_suffix, right_suffix)
+        self.rvalid = key_validity(right, self.right_keys)
+        self.matched = None   # bool[m], build rows matched so far
+        self._built = None    # (canonical key kinds, order, table, uniq)
+        self._template = None  # zero rows of the probe side
+
+    # -- canonical key planes --
+    def _planes(self, lc: Column, rc: Column, probe: bool):
+        """One key pair's canonical planes on the probe (``probe``) or the
+        build side."""
+        if lc.dtype.is_binary != rc.dtype.is_binary:
+            raise Invalid(f"join: key type mismatch {lc.dtype} vs "
+                          f"{rc.dtype}")
+        if lc.dtype.is_binary:
+            index = rc.dictionary.index
+            pool = (lc if probe else rc).dictionary.values.tolist()
+            remap = np.array([index.get(v, -1) for v in pool],
+                             dtype=np.int64)
+            return [_remap(lc if probe else rc, remap).to(torch.int64)]
+        col = lc if probe else rc
+        if lc.dtype.is_decimal:
+            t = common_decimal_type([lc.dtype, rc.dtype])
+            if col.dtype != t:
+                col = decimal_cast(col, t, allow_truncate=False,
+                                   check_range=False)
+            return decimal_limb_keys(col)
+        planes = normalize_sort_key(col)
+        return planes if col.dtype.is_floating else planes[-1:]
+
+    def _side_planes(self, batch: RecordBatch, probe: bool):
+        out = []
+        for lk, rk in zip(self.keys, self.right_keys):
+            out += self._planes(batch.column(lk), self.right.column(rk),
+                                probe)
+        return out
+
+    def _build(self, left: RecordBatch):
+        planes = self._side_planes(left, probe=False)
+        m = self.right.num_rows
+        uniq = None
+        if len(planes) == 1:
+            key = planes[0]
+        elif m:
+            uniq, key = torch.unique(torch.stack(planes, 1), dim=0,
+                                     return_inverse=True)
+        else:
+            key = planes[0]
+        order, table = _build_table(key, self.rvalid) if m else (None, None)
+        self._built = (order, table, uniq)
+        self.matched = torch.zeros(m, dtype=torch.bool,
+                                   device=key.device)
+
+    def _ranges(self, left: RecordBatch):
+        """(lo int64, counts int32) of each probe row in the build order."""
+        order, table, uniq = self._built
+        n = left.num_rows
+        dev = self.matched.device
+        if table is None or n == 0:
+            zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+            return zeros, zeros.to(torch.int32)
+        planes = self._side_planes(left, probe=True)
+        if uniq is None:
+            key = planes[0]
+        else:   # the id of the probe's row among the distinct build rows
+            uorder, ulo, ucounts = probe_ranges_sortmerge(
+                planes, list(uniq.unbind(1)))
+            key = torch.where(ucounts > 0,
+                              uorder[ulo.clamp(max=uniq.shape[0] - 1)], -1)
+        lo, counts = join_probe(table, key)
+        lvalid = key_validity(left, self.keys)
+        if lvalid is not None:
+            counts = torch.where(lvalid, counts, 0)
+        return lo.to(torch.int64), counts
+
+    def _mark(self, lo, counts):
+        """OR each probe row's build range into ``matched``: +1 at its
+        start, -1 past its end, a cumsum over the build order."""
+        order = self._built[0]
+        m = self.matched.shape[0]
+        hit = counts > 0
+        one = torch.ones_like(lo)
+        d = torch.zeros(m + 1, dtype=torch.int64, device=lo.device)
+        d.scatter_add_(0, torch.where(hit, lo, m), one)
+        d.scatter_add_(0, torch.where(hit, lo + counts, m), -one)
+        covered = torch.cumsum(d[:m], 0) > 0
+        self.matched[order] |= covered
+
+    def probe(self, left: RecordBatch):
+        if self._built is None:
+            self._build(left)
+        if self._template is None:
+            self._template = left.slice(0, 0)
+        jt = self.join_type
+        lo, counts = self._ranges(left)
+        if jt in self._RIGHT and self._built[0] is not None:
+            self._mark(lo, counts)
+        matched = counts > 0
+        if jt in ("left semi", "left anti"):
+            return gather_batch(left, _nonzero(
+                matched if jt == "left semi" else ~matched))
+        if jt in ("right semi", "right anti"):
+            return None
+        outer_left = jt in ("left outer", "full outer")
+        emit = (counts.clamp(min=1) if outer_left else counts).to(
+            torch.int64)
+        total = int(emit.sum())   # the host sync that sizes the result
+        dev = emit.device
+        li = torch.repeat_interleave(torch.arange(left.num_rows, device=dev),
+                                     emit, output_size=total)
+        within = torch.arange(total, device=dev) - \
+            (torch.cumsum(emit, 0) - emit)[li]
+        pos = lo[li] + torch.minimum(
+            within, (counts[li].to(torch.int64) - 1).clamp(min=0))
+        order = self._built[0]
+        ri = order[pos.clamp(0, self.right.num_rows - 1)] \
+            if order is not None else torch.zeros_like(li)
+        return self._assemble(left, li, ri, None,
+                              matched[li] if outer_left else None)
+
+    def finish(self):
+        """The build side's rows, once, after the last probe batch."""
+        jt = self.join_type
+        if jt not in self._RIGHT or self._template is None:
+            return None
+        keep = self.matched & self.rvalid if self.rvalid is not None \
+            else self.matched
+        if jt == "right semi":
+            return gather_batch(self.right, _nonzero(keep))
+        rows = _nonzero(~keep)
+        if jt == "right anti":
+            return gather_batch(self.right, rows)
+        nulls = torch.zeros(rows.shape[0], dtype=torch.bool,
+                            device=rows.device)
+        return self._assemble(self._template, torch.zeros_like(rows), rows,
+                              nulls, None)
+
+    def _assemble(self, left, li, ri, lv, rv) -> RecordBatch:
+        """The result's columns: the keys (the build's for right outer,
+        coalesced for full outer), the probe's other columns, then the
+        build's, with the suffixes."""
+        jt = self.join_type
+        ls, rs = self.suffixes
+        names: List[str] = []
+        cols: List[Column] = []
+        for lk, rk in zip(self.keys, self.right_keys):
+            if jt == "right outer":
+                kcol = _take(self.right.column(rk), ri, None)
+            else:
+                kcol = _take(left.column(lk), li, lv)
+                if jt == "full outer":
+                    kcol = _coalesce(kcol, _take(self.right.column(rk), ri,
+                                                 rv))
+            names.append(lk)
+            cols.append(kcol)
+        for batch, skip, idx, validity, suffix in (
+                (left, set(self.keys), li, lv, ls),
+                (self.right, set(self.right_keys), ri, rv, rs)):
+            n, c = _payload(batch, skip, idx, validity, suffix)
+            names += n
+            cols += c
+        return RecordBatch(tuple(cols), tuple(names))
 
 
 def join_asof(left: RecordBatch, right: RecordBatch, on: str, by=None,
@@ -344,7 +429,7 @@ def join_asof(left: RecordBatch, right: RecordBatch, on: str, by=None,
     else:
         window = -int(tolerance)
     if by:
-        lids, rids, _, _, _ = _key_ids(left, right, by, by)
+        lids, rids, _, _ = _key_ids(left, right, by, by)
     else:
         lids = torch.zeros(n, dtype=torch.int32, device=dev)
         rids = torch.zeros(m, dtype=torch.int32, device=dev)

@@ -15,6 +15,10 @@ values come out of the compaction kernel (kernels/compaction.py, K2), as
 the JAX package does on the TPU; at smaller G they are binary searches
 and gathers.
 
+``grouping_padded`` is the sort-based grouping of the distributed
+operators (parallel/distributed.py, exec/dist_compiled.py): dense ids in
+first-appearance order, padded to the row count.
+
 The join core (``probe_ranges_sortmerge``, ``join_padded``) matches keys
 exactly over every key plane through one merged stable sort, and expands
 the matches into a fixed capacity by count, scan and write: each probe
@@ -36,7 +40,8 @@ __all__ = ["filter_padded", "last_marked", "probe_ranges_sortmerge",
            "join_padded", "SortedGroups", "group_sort_padded", "gsp_sort",
            "gsp_flags", "gsp_segments", "gsp_positions_big", "seg_sum_plane",
            "segment_float_sums", "seg_float_sum", "seg_minmax_plane",
-           "seg_values_at_ends", "seg_diff_lo"]
+           "seg_values_at_ends", "seg_diff_lo", "PaddedGroups",
+           "grouping_padded"]
 
 BIG_G = 65536   # above this group capacity, segments come from K2
 
@@ -436,3 +441,51 @@ def seg_minmax_plane(xs: torch.Tensor, mask_s: Optional[torch.Tensor],
     else:
         op = torch.minimum if is_min else torch.maximum
     return _segmented_scan(vals, sg.first, op)
+
+
+class PaddedGroups(NamedTuple):
+    """Groups padded to the row count n (counterpart of the reference's
+    ``PaddedGroups``; ids are int64, torch's index type)."""
+
+    group_ids: torch.Tensor    # int64[n] dense id per row, first-appearance
+    rep_rows: torch.Tensor     # int64[n] first row of each group (padded)
+    num_groups: torch.Tensor   # int64 scalar
+    group_valid: torch.Tensor  # bool[n] slot < num_groups
+
+
+def grouping_padded(keys: Sequence[torch.Tensor]) -> PaddedGroups:
+    """Sort-based grouping with static shapes: one stable sort of the key
+    planes (``probe_ranges_sortmerge``'s plane order: uint8 planes 8 bits,
+    others unsigned 64-bit patterns), first-flags, a cumsum for the sorted
+    group ids, then the groups ranked by their first row, so the ids are in
+    first-appearance order with ``num_groups`` on the device."""
+    keys = list(keys)
+    n = keys[0].shape[0]
+    dev = keys[0].device
+    pos = torch.arange(n, device=dev)
+    if n == 0:
+        return PaddedGroups(pos, pos, torch.zeros((), dtype=torch.int64,
+                                                  device=dev),
+                            torch.zeros(0, dtype=torch.bool, device=dev))
+    order = sort_permutation(keys, [_plane_bits(k) for k in keys])
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    if n > 1:
+        same = torch.ones(n - 1, dtype=torch.bool, device=dev)
+        for k in keys:
+            ks = k[order]
+            same &= ks[1:] == ks[:-1]
+        first[1:] = ~same
+    gid_sorted = torch.cumsum(first, 0) - 1
+    num_groups = gid_sorted[-1] + 1
+    row_gid = torch.empty_like(gid_sorted)
+    row_gid[order] = gid_sorted
+    # each sorted group's first row (the stable sort keeps rows in order)
+    rep_sorted = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    rep_sorted.scatter_(0, torch.where(first, gid_sorted, n), order)
+    slot_valid = pos < num_groups
+    rep_key = torch.where(slot_valid, rep_sorted[:n], n)
+    appearance = torch.sort(rep_key, stable=True).indices
+    rep_rows = torch.where(slot_valid, rep_key[appearance], 0)
+    rank = torch.empty_like(appearance)
+    rank[appearance] = pos
+    return PaddedGroups(rank[row_gid], rep_rows, num_groups, slot_valid)

@@ -122,8 +122,8 @@ def gather_batch(batch: RecordBatch, idx: torch.Tensor,
             Column(torch.zeros(idx.shape[0], dtype=c.data.dtype,
                                device=idx.device), c.dtype, validity=null,
                    dictionary=c.dictionary,
-                   data2=None if c.data2 is None else torch.zeros(
-                       idx.shape[0], dtype=c.data2.dtype, device=idx.device))
+                   data2=None if c.data2 is None else c.data2.new_zeros(
+                       (idx.shape[0],) + c.data2.shape[1:]))
             for c in batch.columns), batch.names)
     return RecordBatch(tuple(take_column(c, idx, extra_validity)
                              for c in batch.columns), batch.names)

@@ -399,9 +399,12 @@ def _distinct_rows(parts):
     on the device, of one mixed-radix key when the parts' ranges fit in
     62 bits (one sync reads them), else of the rows."""
     stacked = torch.stack(parts, dim=1)
+    if stacked.shape[0] == 0:   # no row: nothing to reduce
+        return (np.empty((0, len(parts)), dtype=np.int64),
+                torch.zeros(0, dtype=torch.int32, device=stacked.device))
     lo, hi = (r.cpu().tolist() for r in torch.aminmax(stacked, dim=0))
     spans = [h - l + 1 for l, h in zip(lo, hi)]
-    if stacked.shape[0] == 0 or np.prod([float(s) for s in spans]) >= 2.0 ** 62:
+    if np.prod([float(s) for s in spans]) >= 2.0 ** 62:
         uniq, inv = torch.unique(stacked, dim=0, return_inverse=True)
         return uniq.cpu().numpy(), inv.to(torch.int32)
     key = torch.zeros_like(parts[0])

@@ -11,7 +11,9 @@ sort and limit:
                    .to_table()
 
 It runs on the device of the source's tensors. A join builds the right
-side's hash table again for every batch, as the reference does. Datasets
+side's hash table once and probes it batch by batch (``ops.join.
+BuiltJoin``); the build side's rows of a right or full outer, right semi
+or right anti join come once, after the last batch. Datasets
 as sources come with the host-plane slice (ROADMAP Queue 1 item 12).
 """
 
@@ -89,28 +91,27 @@ class Query:
         batches = self._source_batches()
         if not batches:
             raise Invalid("query produced no batches")
-        out: List[RecordBatch] = []
+        joiner = None
+        if self._join is not None:
+            from .ops.join import BuiltJoin
+
+            right, keys, right_keys, join_type = self._join
+            rb = right.combine_chunks() if isinstance(right, Table) \
+                else right
+            joiner = BuiltJoin(rb, keys, right_keys, join_type)
+        joined: List[RecordBatch] = []
         for batch in batches:
             if self._filter is not None:
                 mask = self._filter.execute(batch)
                 batch = call_function("filter", [batch, mask])
-            if self._join is not None:
-                from .ops.join import join as join_fn
-
-                right, keys, right_keys, join_type = self._join
-                rb = right.combine_chunks() if isinstance(right, Table) \
-                    else right
-                batch = join_fn(batch, rb, keys, right_keys, join_type)
-            if self._projection is not None:
-                cols, names = [], []
-                for e, name in self._projection:
-                    cols.append(e.execute(batch))
-                    names.append(name)
-                batch = RecordBatch(tuple(cols), tuple(names))
-            elif self._columns is not None and \
-                    set(self._columns) <= set(batch.names):
-                batch = batch.select(self._columns)
-            out.append(batch)
+            if joiner is not None:
+                batch = joiner.probe(batch)
+            if batch is not None:
+                joined.append(batch)
+        tail = joiner.finish() if joiner is not None else None
+        if tail is not None:
+            joined.append(tail)
+        out = [self._shape(b) for b in joined]
 
         if self._group is not None:
             from .exec.streaming import StreamingGroupBy
@@ -129,6 +130,16 @@ class Query:
         if self._limit is not None:
             result = result.slice(0, self._limit)
         return Table([result])
+
+    def _shape(self, batch: RecordBatch) -> RecordBatch:
+        """The projection, or the selected columns, of one batch."""
+        if self._projection is not None:
+            cols = tuple(e.execute(batch) for e, _ in self._projection)
+            return RecordBatch(cols, tuple(n for _, n in self._projection))
+        if self._columns is not None and \
+                set(self._columns) <= set(batch.names):
+            return batch.select(self._columns)
+        return batch
 
     def to_batch(self) -> RecordBatch:
         return self.to_table().combine_chunks()

@@ -166,7 +166,19 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    on CPU tensors over the first NESTED_WINDOW orders or rows, with
    round trips at full size; then Q1's quantities by (year, flag) pivoted
    wide (hash_pivot_wider, pivot_wider) against numpy; its K2 launches
-   are counted and must be above 0.
+   are counted and must be above 0;
+20. (run after 19) opens a one-rank NCCL process group on the card
+   (parallel.multihost.initialize over an in-process store) and runs the
+   distributed operators over config 2's 10M rows (seed 0): dist_filter,
+   dist_group_by at G = 1000 and 2^20, dist_join inner and left outer
+   (a 500-key dimension), dist_sort; then q1_distributed and
+   q3_distributed over phase 12's SF10 tables. Each result must equal the
+   single-card engine's on the same input (integers, keys and nulls
+   exactly, float64 within SF10_RTOL, the sort the same permutation; Q1
+   and Q3 also the numpy oracle); prints each call's wall (median of 3),
+   peak device memory, bytes through all_to_all_single and K2 launches,
+   which must be above 0. Phase 12 also checks that Q3 builds its hash
+   table once and Q5 twice (one build a join).
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -2471,8 +2483,8 @@ def _check_sf10(out, want, label, key=None):
 
 
 class _CallCounter:
-    """Stands in for ``ops.join.join`` and counts its calls (each builds
-    a hash table)."""
+    """Stands in for ``ops.join._build_table`` and counts its calls (each
+    builds a hash table)."""
 
     def __init__(self, real):
         self.real = real
@@ -2485,9 +2497,8 @@ class _CallCounter:
 
 def phase_sf10(pt, dev, peak, counted):
     """The query layer at TPC-H SF10 cardinalities. Returns the launch
-    counts of the counted runs, the lineitem Table (phases 16 and 17
-    reuse it)
-    and the numpy oracles."""
+    counts of the counted runs, the lineitem Table and the orders batch
+    (phases 16, 17, 19 and 20 reuse them) and the numpy oracles."""
     import arrow1_tpu_torch.ops.join as ops_join
     import arrow1_tpu_torch.profile_main_path as pm
     from arrow1_tpu_torch import acero, models
@@ -2555,13 +2566,13 @@ def phase_sf10(pt, dev, peak, counted):
         torch.cuda.reset_peak_memory_stats()
         for kern in counted:
             kern.launches = 0
-        counter = _CallCounter(ops_join.join)
-        ops_join.join = counter
+        counter = _CallCounter(ops_join._build_table)
+        ops_join._build_table = counter
         try:
             out = run()
             torch.cuda.synchronize()
         finally:
-            ops_join.join = counter.real
+            ops_join._build_table = counter.real
         mem = torch.cuda.max_memory_allocated()
         run_launches = {kern.__name__: kern.launches for kern in counted}
         for name, count in run_launches.items():
@@ -2588,9 +2599,171 @@ def phase_sf10(pt, dev, peak, counted):
               f"device memory {mem / 2**30:.2f} GiB, least-bytes bound "
               f"{nbytes / peak * 1e3:.4f} ms ({nbytes / 1e9:.3f} GB); one "
               f"run: K2 {run_launches['compact']}, K3 "
-              f"{run_launches['segment_sums']}, hash-join calls "
+              f"{run_launches['segment_sums']}, hash-join builds "
               f"{counter.calls}", flush=True)
-    return launches, lt, want
+        if oracle in ("q3", "q5") and counter.calls != \
+                {"q3": 1, "q5": 2}[oracle]:
+            raise AssertionError(f"{label}: {counter.calls} hash-join "
+                                 "builds, not one a join")
+    return launches, lt, ob, want
+
+
+DIST_AGGS = [("v", "sum"), ("v", "count"), ("v", "min"), ("v", "max"),
+             ("w", "sum"), ("w", "mean")]
+
+
+def _dist_batch(pt, dev, G):
+    """Config 2's 10M rows at G keys (seed 0) with a row id ``i``."""
+    k, v, w, w_valid = _group_by_data(G)
+    batch = pt.record_batch({"k": k, "v": v,
+                             "i": np.arange(N_BIG, dtype=np.int64)},
+                            device=dev)
+    wcol = pt.Column(torch.from_numpy(w).to(dev), pt.int32,
+                     validity=torch.from_numpy(w_valid).to(dev))
+    return pt.RecordBatch(batch.columns + (wcol,), batch.names + ("w",))
+
+
+def _same_batch(got, want, label, by=None, approx=()):
+    """Equal columns: data and validity exactly (f64 columns named in
+    ``approx`` within SF10_RTOL relative); with ``by``, both sides' rows
+    first put in the order of that unique int64 column."""
+    if list(got.names) != list(want.names) or got.num_rows != want.num_rows:
+        raise AssertionError(f"{label}: {got!r} vs {want!r}")
+
+    def order(b):
+        return None if by is None else torch.argsort(b[by].data)
+
+    og, ow = order(got), order(want)
+    for name in want.names:
+        a, b = got[name], want[name]
+        da, db = (a.data, b.data) if by is None else (a.data[og],
+                                                      b.data[ow])
+        va, vb = (a.mask(), b.mask()) if by is None else (a.mask()[og],
+                                                          b.mask()[ow])
+        if not torch.equal(va, vb):
+            raise AssertionError(f"{label}: column {name}'s nulls differ")
+        if name in approx:
+            ok = torch.allclose(da[va], db[vb], rtol=SF10_RTOL, atol=0)
+        else:
+            ok = torch.equal(torch.where(va, da, 0), torch.where(vb, db, 0))
+        if not ok:
+            raise AssertionError(f"{label}: column {name} differs")
+
+
+def phase_distributed(pt, dev, counted, lt, ob, want):
+    """Phase 20: the distributed operators and the distributed TPC-H
+    templates on a one-rank NCCL group on the card, each against the
+    single-card engine's answer on the same input. Returns the launch
+    counts of the counted runs."""
+    from arrow1_tpu_torch import models
+    from arrow1_tpu_torch.exec.plan import sort_batch
+    from arrow1_tpu_torch.parallel import (dist_filter, dist_group_by,
+                                           dist_join, make_mesh, multihost)
+    from arrow1_tpu_torch.parallel.distributed import dist_sort
+    from arrow1_tpu_torch.parallel.shuffle import EXCHANGED
+
+    t_phase = time.perf_counter()
+    multihost.initialize(device=dev)   # NCCL, one rank, a HashStore
+    try:
+        import torch.distributed as dist
+
+        mesh = make_mesh()
+        if dist.get_backend() != "nccl" or mesh.device != torch.device(dev):
+            raise AssertionError(f"phase 20: backend {dist.get_backend()} "
+                                 f"on {mesh.device}, not NCCL on {dev}")
+        b1k = _dist_batch(pt, dev, 1000)
+        bmg = _dist_batch(pt, dev, 1 << 20)
+        dims = pt.record_batch({"k": np.arange(0, 1000, 2, dtype=np.int64),
+                                "z": np.arange(0, 3000, 6, dtype=np.int64)},
+                               device=dev)
+        li = lt.combine_chunks()
+        pred = pt.field("v") > 0
+        sort_keys = [("k", "ascending"), ("v", "descending")]
+
+        def by_key(b):   # the groups in key order
+            return pt.RecordBatch(tuple(pt.take(c, pt.Column(
+                torch.argsort(b["k"].data), pt.int64)) for c in b.columns),
+                b.names)
+
+        def once(fn):   # the single-card answer, computed at first use
+            box = []
+            return lambda: box[0] if box else (box.append(fn()) or box[0])
+
+        want_filter = once(lambda: pt.filter(b1k, pred.execute(b1k)))
+        want_gb = {G: once(lambda b=b: by_key(pt.group_by(b, ["k"],
+                                                          DIST_AGGS)))
+                   for G, b in ((1000, b1k), (1 << 20, bmg))}
+        want_join = {jt: once(lambda jt=jt: pt.join(b1k, dims, ["k"],
+                                                    join_type=jt))
+                     for jt in ("inner", "left outer")}
+        want_sort = once(lambda: sort_batch(b1k, sort_keys))
+        want_q1 = once(lambda: models.q1_pricing_summary(lt))
+        want_q3 = once(lambda: models.q3_shipping_priority(lt, ob))
+        calls = [
+            ("dist_filter 10M", lambda: dist_filter(b1k, pred, mesh),
+             lambda out: _same_batch(out, want_filter(), "dist_filter"))]
+        for G, b in ((1000, b1k), (1 << 20, bmg)):
+            label = f"dist_group_by G={G}"
+            calls.append((label, lambda b=b: dist_group_by(
+                b, ["k"], DIST_AGGS, mesh),
+                lambda out, G=G, label=label: _same_batch(
+                    by_key(out), want_gb[G](), label, approx=("w_mean",))))
+        for jt in ("inner", "left outer"):
+            calls.append((f"dist_join {jt}", lambda jt=jt: dist_join(
+                b1k, dims, ["k"], join_type=jt, mesh=mesh),
+                lambda out, jt=jt: _same_batch(out, want_join[jt](),
+                                               f"dist_join {jt}", by="i")))
+        calls += [
+            ("dist_sort 10M", lambda: dist_sort(b1k, sort_keys, mesh),
+             lambda out: _same_batch(out, want_sort(), "dist_sort")),
+            ("q1_distributed SF10", lambda: models.q1_distributed(li, mesh),
+             lambda out: (_check_sf10(out, want["q1"], "q1_distributed"),
+                          _same_batch(out, want_q1(),
+                                      "q1_distributed against query()",
+                                      approx=("l_extendedprice_sum",)))),
+            ("q3_distributed SF10",
+             lambda: models.q3_distributed(li, ob, mesh),
+             lambda out: (_check_sf10(out, want["q3"], "q3_distributed"),
+                          _same_batch(out, want_q3(),
+                                      "q3_distributed against query()",
+                                      approx=("l_extendedprice_sum",))))]
+        print(f"phase 20: a one-rank NCCL group on {mesh.device}; config 2 "
+              f"at {N_BIG} rows, SF10 {li.num_rows} line items and "
+              f"{ob.num_rows} orders", flush=True)
+        launches = {kern.__name__: 0 for kern in counted}
+        for label, run, check in calls:
+            check(run())   # warm-up, checked
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in counted:
+                kern.launches = 0
+            sent = EXCHANGED["bytes"]
+            check(run())
+            torch.cuda.synchronize()
+            mem = torch.cuda.max_memory_allocated()
+            sent = EXCHANGED["bytes"] - sent
+            run_launches = {kern.__name__: kern.launches for kern in counted}
+            for name, count in run_launches.items():
+                launches[name] += count
+            if run_launches["compact"] <= 0:
+                raise AssertionError(f"{label}: no K2 launch")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            print(f"{label}: equals the single-card engine; wall "
+                  f"{statistics.median(walls) * 1e3:.3f} ms (median of 3), "
+                  f"peak device memory {mem / 2**30:.2f} GiB, "
+                  f"all_to_all_single {sent / 1e9:.3f} GB a call, K2 "
+                  f"launches {run_launches['compact']}", flush=True)
+        del b1k, bmg, li
+    finally:
+        multihost.shutdown()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def _check_config3(out, inp):
@@ -2831,8 +3004,8 @@ def main() -> int:
           f"{probe_launches}", flush=True)
     launches.update(u64_launches)
     torch.cuda.empty_cache()
-    sf10_launches, sf10_lineitem, sf10_want = phase_sf10(pt, dev, peak,
-                                                         all_kernels)
+    sf10_launches, sf10_lineitem, sf10_orders, sf10_want = phase_sf10(
+        pt, dev, peak, all_kernels)
     print(f"SF10 query layer launches: {sf10_launches}", flush=True)
     for kname, count in sf10_launches.items():
         launches[kname] = launches.get(kname, 0) + count
@@ -2862,7 +3035,13 @@ def main() -> int:
     print(f"nested main path launches: {nested_launches}", flush=True)
     for kname, count in nested_launches.items():
         launches[kname] = launches.get(kname, 0) + count
-    del sf10_lineitem
+    torch.cuda.empty_cache()
+    dist_launches = phase_distributed(pt, dev, all_kernels, sf10_lineitem,
+                                      sf10_orders, sf10_want)
+    print(f"distributed main path launches: {dist_launches}", flush=True)
+    for kname, count in dist_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    del sf10_lineitem, sf10_orders
     torch.cuda.empty_cache()
     phase_probe_device_times(probe_calls, probe_rows)
 

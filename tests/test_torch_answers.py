@@ -35,18 +35,23 @@ copyreg.pickle(_jax_column.Dictionary,
                lambda d: (_jax_column.Dictionary, (d.values,)))
 
 # the files whose answers the workers compute, in the order they start:
-# run order, but the sweep's (about 30 s of one core, for a file that
-# runs late) right after the decimal parts, so that no file waits long
-MODULES = ("test_torch_decimal:0", "test_torch_decimal:1",
+# run order, but the distributed pipeline's first (the file after
+# decimal, and its answers compile a program a case), the sweep's (about
+# 30 s of one core, for a file that runs late) right after the decimal
+# parts and the distributed operators' before nested's, so that no file
+# waits long
+MODULES = ("test_torch_dist_compiled:0", "test_torch_dist_compiled:1",
+           "test_torch_decimal:0", "test_torch_decimal:1",
            "test_torch_decimal:2", "test_torch_registry_sweep",
            "test_torch_fused", "test_torch_groupby", "test_torch_hashtable",
+           "test_torch_parallel:0", "test_torch_parallel:1",
            "test_torch_join", "test_torch_nested:0", "test_torch_nested:1",
            "test_torch_nested:2", "test_torch_pipeline",
            "test_torch_port_faults", "test_torch_query",
            "test_torch_strings", "test_torch_tail", "test_torch_temporal")
-# a few workers beside the test process: the answers of all files take
-# about a minute of one core
-WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))
+# workers beside the test process, leaving it and one more core free:
+# the answers of all files take about five minutes of one core
+WORKERS = max(1, min(6, (os.cpu_count() or 3) - 2))
 # one deadline for the whole run, counted from the pool's start: past it
 # no file waits for a worker (a stalled one is stopped), and the files
 # left compute their answers in the test process
@@ -70,9 +75,13 @@ def _keys(module_name: str):
 
 def start() -> None:
     """Start computing, in worker processes, the answers of every file of
-    MODULES that this test run imported (once)."""
+    MODULES that this test run imported (once), and the gloo rank pools
+    of the distributed files (``test_torch_ranks.start_imported``)."""
     if _futures or multiprocessing.parent_process() is not None:
         return
+    import test_torch_ranks
+
+    test_torch_ranks.start_imported()
     names = [m for m in MODULES if m.partition(":")[0] in sys.modules]
     try:
         pool = ProcessPoolExecutor(

@@ -954,7 +954,8 @@ def test_repaired_faults_on_card(cuda):
     path (one K3 launch), the dense mean is the exact sum's, the compiled
     group_by emits -0.0 for a group of -0.0 keys; a scalar aggregate with
     skip_nulls=False over a null is null, and a grouped variance of values
-    near 1e9 does not cancel."""
+    near 1e9 does not cancel; then the distributed slice's P1-P3 and S8
+    (``_distributed_slice_faults``)."""
     import pyarrow as pa
 
     rb = pa.record_batch({"k": pa.array(["a", "b", "a", None]
@@ -996,6 +997,120 @@ def test_repaired_faults_on_card(cuda):
                 pt.PipelineBuilder().group_by(["k"], [("v", "variance")])
                 .compile()(big)):
         assert out["v_variance"].to_pylist() == [0.6666666666666666]
+    _distributed_slice_faults(cuda)
+
+
+def _multiset(batch):
+    return sorted(repr(sorted(r.items())) for r in
+                  (dict(zip(batch.names, row)) for row in
+                   zip(*[c.to_pylist() for c in batch.columns])))
+
+
+def _distributed_slice_faults(cuda):
+    """The faults repaired with the distributed slice, on the card
+    (pyarrow's answers, hard-coded): a decimal column of zero rows leaves
+    the port (P1); query()'s string group_by with a null key over two
+    batches (P2); binary_join_element_wise and binary_repeat of zero rows
+    (P3); query()'s right outer and right semi joins over two probe
+    batches emit the build side once (S8)."""
+    from arrow1_tpu_torch.ops.join import BuiltJoin
+
+    for t, hi in ((pt.decimal128(15, 2), torch.tensor([0, -1])),
+                  (pt.decimal256(60, 6), torch.tensor([[0, 0, 0],
+                                                       [-1, -1, -1]]))):
+        col = pt.Column(torch.tensor([100, -250], device=cuda), t,
+                        data2=hi.to(cuda))
+        none = pt.Column(torch.zeros(2, dtype=torch.bool, device=cuda),
+                         pt.bool_)
+        assert pt.filter(col, none).to_pylist() == []
+        empty = col.slice(0, 0)
+        mm = pt.call_function("min_max", [empty])
+        assert mm["min"].to_pylist() == [None] == mm["max"].to_pylist()
+        assert pt.call_function("negate", [empty]).to_pylist() == []
+    s = pt.interop.column_from_numpy
+    b1 = pt.RecordBatch((s(np.array(["x", "y", "x"], dtype=object),
+                           device=cuda),
+                         s(np.array([1, 2, 3]), device=cuda)), ("s", "v"))
+    b2 = pt.RecordBatch((s(np.array(["y", "z", None], dtype=object),
+                           device=cuda),
+                         s(np.array([10, 20, 30]), device=cuda)), ("s", "v"))
+    for batches in ([b1, b2], [b2, b1]):
+        out = pt.query(pt.Table(batches)).group_by(
+            ["s"], [("v", "sum")]).to_batch()
+        assert sorted(zip(out["s"].to_pylist(), out["v_sum"].to_pylist()),
+                      key=repr) == sorted([("x", 4), ("y", 12), ("z", 20),
+                                           (None, 30)], key=repr)
+    es = s(np.array([], dtype=object), device=cuda)
+    assert pt.call_function("binary_join_element_wise",
+                            [es, es, es]).to_pylist() == []
+    assert pt.call_function("binary_repeat", [
+        es, s(np.array([], dtype=np.int64), device=cuda)]).to_pylist() == []
+    right = pt.RecordBatch((s(np.array(["z", "x", None], dtype=object),
+                              device=cuda),
+                            s(np.array([7, 8, 9]), device=cuda)), ("s", "w"))
+    lb = [pt.RecordBatch((s(np.array(k, dtype=object), device=cuda),
+                          s(np.array(v), device=cuda)), ("s", "v"))
+          for k, v in ((["x", None, "x"], [1, 2, 3]),
+                       (["y", "z", None], [4, 5, 6]))]
+    got = pt.query(pt.Table(lb)).join(right, "s",
+                                      join_type="right outer").to_batch()
+    assert _multiset(got) == sorted(repr(sorted(r.items())) for r in [
+        {"s": "x", "v": 1, "w": 8}, {"s": "x", "v": 3, "w": 8},
+        {"s": "z", "v": 5, "w": 7}, {"s": None, "v": None, "w": 9}])
+    semi = pt.query(pt.Table(lb)).join(right, "s",
+                                       join_type="right semi").to_batch()
+    assert sorted(semi["w"].to_pylist()) == [7, 8]
+    joiner = BuiltJoin(right, "s", join_type="full outer")
+    assert joiner.probe(lb[0]).num_rows == 3 and joiner.finish() is not None
+
+
+def test_distributed_on_one_nccl_rank(cuda):
+    """The distributed operators and pipeline on a one-rank NCCL group on
+    the card, each equal to the single-card engine."""
+    from arrow1_tpu_torch.exec import DistPipelineBuilder
+    from arrow1_tpu_torch.exec.plan import sort_batch
+    from arrow1_tpu_torch.parallel import (dist_filter, dist_group_by,
+                                           dist_join, make_mesh, multihost)
+    from arrow1_tpu_torch.parallel.distributed import dist_sort
+
+    import torch.distributed as dist
+
+    multihost.initialize(device=torch.device("cuda", 0))
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        rng = np.random.default_rng(20)
+        n = 100_000
+        b = pt.record_batch({"k": rng.integers(0, 500, n),
+                             "v": rng.integers(-100, 100, n),
+                             "i": np.arange(n)}, device=cuda)
+        dims = pt.record_batch({"k": np.arange(0, 500, 2),
+                                "z": np.arange(250) * 3}, device=cuda)
+        before = compact.launches
+        e = pt.field("v") > 0
+        assert _multiset(dist_filter(b, e, mesh)) == \
+            _multiset(pt.filter(b, e.execute(b)))
+        assert compact.launches > before
+        aggs = [("v", "sum"), ("v", "count"), ("v", "min")]
+        assert _multiset(dist_group_by(b, ["k"], aggs, mesh)) == \
+            _multiset(pt.group_by(b, ["k"], aggs))
+        for jt in ("inner", "left outer"):
+            assert _multiset(dist_join(b, dims, ["k"], join_type=jt,
+                                       mesh=mesh)) == \
+                _multiset(pt.join(b, dims, ["k"], join_type=jt))
+        keys = [("k", "ascending"), ("v", "descending")]
+        assert dist_sort(b, keys, mesh)["i"].to_pylist() == \
+            sort_batch(b, keys)["i"].to_pylist()
+        got = (DistPipelineBuilder(mesh).filter(e).join(dims, "k", fanout=2)
+               .group_by(["z"], [("v", "sum")]).sort([("z", "ascending")])
+               .compile())(b)
+        want = sort_batch(pt.group_by(pt.join(
+            pt.filter(b, e.execute(b)), dims, ["k"]), ["z"], [("v", "sum")]),
+            [("z", "ascending")])
+        assert got["z"].to_pylist() == want["z"].to_pylist()
+        assert got["v_sum"].to_pylist() == want["v_sum"].to_pylist()
+    finally:
+        multihost.shutdown()
 
 
 # ---- the temporal slice: the card against the CPU ------------------------

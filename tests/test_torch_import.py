@@ -68,6 +68,14 @@ def test_imports_with_jax_and_pyarrow_blocked():
             "import arrow1_tpu_torch.compute_temporal\n"
             "import arrow1_tpu_torch.ops.nested\n"
             "import arrow1_tpu_torch.compute_nested\n"
+            "import arrow1_tpu_torch.parallel\n"
+            "import arrow1_tpu_torch.parallel.mesh\n"
+            "import arrow1_tpu_torch.parallel.shuffle\n"
+            "import arrow1_tpu_torch.parallel.distributed\n"
+            "import arrow1_tpu_torch.parallel.multihost\n"
+            "import arrow1_tpu_torch.exec.dist_compiled\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "assert len(arrow1_tpu_torch.list_functions()) == 307\n"
             "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
             " for m in sys.modules)\n")

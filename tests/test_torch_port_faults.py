@@ -654,3 +654,198 @@ def test_extract_regex_gives_a_struct_column(fn, jax_results):
         rows = [r if r is None else {g: [-1, 0] if v is None else v
                                      for g, v in r.items()} for r in rows]
     assert got.to_pylist() == rows
+
+
+# ---- the faults repaired with the distributed slice (P1-P3, S8) ----------
+# The JAX package agrees with pyarrow on P1-P3 (ROADMAP Queue 3), so these
+# take pyarrow's answer; on S8 it keeps the fault and pyarrow decides.
+
+DEC_TYPES = {"d128": pa.decimal128(15, 2), "d256": pa.decimal256(60, 6)}
+
+
+def _dec(values, typ):
+    from decimal import Decimal
+
+    return pa.array([None if v is None else Decimal(v) for v in values],
+                    typ)
+
+
+def _arrow(x):
+    """A port result as pyarrow rows, after a full validation."""
+    out = x.to_arrow()
+    out.validate(full=True)
+    return out.to_pylist()
+
+
+def _zero_row_paths(typ):
+    """name -> (the port's result as rows, pyarrow's rows)."""
+    import arrow1_tpu_torch.interop as io
+
+    two = _dec(["1.00", "-2.50"], typ)
+    empty = pa.array([], typ)
+    nulls = pa.array([None, None], typ)
+    tb = pa.table({"k": [1, 2, 1], "d": _dec(["1.00", "2.00", None], typ)})
+
+    def col(a):
+        return io.column_from_arrow(a, device="cpu")
+
+    def q():
+        return pt.query(io.table_from_arrow(tb, device="cpu")).filter(
+            pt.field("k") > 5)
+
+    none = tb.filter(pc.greater(tb["k"], 5))
+    return {
+        "filter": (lambda: _arrow(pt.filter(col(two), col(pa.array(
+            [False, False])))), lambda: []),
+        "query_select": (lambda: _arrow(q().select(["d"]).to_batch()),
+                         lambda: none.select(["d"]).to_pylist()),
+        "query_group_by": (
+            lambda: _arrow(q().group_by(["d"], [("k", "sum")]).to_batch()),
+            lambda: none.group_by("d").aggregate([("k", "sum")]).to_pylist()),
+        "eager_group_by": (
+            lambda: _arrow(pt.group_by(io.record_batch_from_arrow(
+                none, device="cpu"), ["d"], [("k", "sum")])),
+            lambda: none.group_by("d").aggregate([("k", "sum")]).to_pylist()),
+        "negate": (lambda: _arrow(pt.call_function("negate", [col(empty)])),
+                   lambda: pc.negate(empty).to_pylist()),
+        "add": (lambda: _arrow(pt.call_function("add", [col(empty),
+                                                        col(empty)])),
+                lambda: pc.add(empty, empty).to_pylist()),
+        "drop_null": (lambda: _arrow(pt.call_function("drop_null",
+                                                      [col(empty)])),
+                      lambda: pc.drop_null(empty).to_pylist()),
+        "drop_null_all_null": (
+            lambda: _arrow(pt.call_function("drop_null", [col(nulls)])),
+            lambda: pc.drop_null(nulls).to_pylist()),
+        "unique": (lambda: _arrow(pt.call_function("unique", [col(empty)])),
+                   lambda: pc.unique(empty).to_pylist()),
+        "mode": (lambda: _arrow(pt.call_function("mode", [col(empty)])),
+                 lambda: pc.mode(empty).to_pylist()),
+        "value_counts": (
+            lambda: _arrow(pt.call_function("value_counts", [col(empty)])),
+            lambda: pc.value_counts(empty).to_pylist()),
+        "min_max": (lambda: _arrow(pt.call_function("min_max",
+                                                    [col(empty)])),
+                    lambda: [pc.min_max(empty).as_py()]),
+        "min_max_all_null": (
+            lambda: _arrow(pt.call_function("min_max", [col(nulls)])),
+            lambda: [pc.min_max(nulls).as_py()]),
+    }
+
+
+ZERO_ROW_PATHS = list(_zero_row_paths(DEC_TYPES["d128"]))
+
+
+@pytest.mark.parametrize("typ", list(DEC_TYPES))
+@pytest.mark.parametrize("path", ZERO_ROW_PATHS)
+def test_a_zero_row_decimal_column_leaves_the_port(path, typ):
+    """P1: a decimal column of zero rows reaches pyarrow (and min_max of
+    no valid value is {min: null, max: null})."""
+    got, want = _zero_row_paths(DEC_TYPES[typ])[path]
+    assert got() == want()
+
+
+@pytest.mark.parametrize("null_in", ["second", "first"])
+def test_query_group_by_of_a_null_string_key_over_two_batches(null_in):
+    """P2: the null group's key code never indexes a pool's remap."""
+    b1 = pa.record_batch({"s": ["x", "y", "x"], "v": [1, 2, 3]})
+    b2 = pa.record_batch({"s": ["y", "z", None], "v": [10, 20, 30]})
+    batches = [b1, b2] if null_in == "second" else [b2, b1]
+    tb = pa.Table.from_batches(batches)
+    got = pt.query(pt.interop.table_from_arrow(tb, device="cpu")).group_by(
+        ["s"], [("v", "sum")]).to_batch()
+    want = tb.group_by("s").aggregate([("v", "sum")])
+
+    def rows(r):
+        return sorted(repr(sorted(x.items())) for x in r)
+
+    assert rows(_arrow(got)) == rows(want.to_pylist()) == rows(
+        [{"s": "x", "v_sum": 4}, {"s": "y", "v_sum": 12},
+         {"s": "z", "v_sum": 20}, {"s": None, "v_sum": 30}])
+
+
+@pytest.mark.parametrize("fn", ["binary_join_element_wise", "binary_repeat"])
+def test_zero_row_string_functions(fn):
+    """P3: no reduction over zero rows."""
+    empty = pa.array([], pa.string())
+    args = [empty] * 3 if fn == "binary_join_element_wise" else \
+        [empty, pa.array([], pa.int64())]
+    got = pt.call_function(fn, [pt.interop.column_from_arrow(
+        a, device="cpu") for a in args]).to_arrow()
+    want = pc.call_function(fn, args)
+    assert got.type == want.type == pa.string() and got.to_pylist() == []
+
+
+# ROADMAP Queue 3 item 8's inputs: the probe side in two batches
+S8_INPUTS = {
+    "nulls": ([{"s": ["x", None, "x"], "v": [1, 2, 3]},
+               {"s": ["y", "z", None], "v": [4, 5, 6]}],
+              {"s": ["z", "x", None], "w": [7, 8, 9]}),
+    "semi": ([{"s": ["x", "y"], "v": [1, 2]},
+              {"s": ["x", "q"], "v": [3, 4]}],
+             {"s": ["x", "z"], "w": [7, 8]}),
+}
+S8_TYPES = ["right outer", "right semi", "full outer", "right anti"]
+
+
+def _s8_run(route, probe, build, join_type):
+    from arrow1_tpu_torch.exec import plan
+
+    if route == "query":
+        return pt.query(probe).join(build, "s",
+                                    join_type=join_type).to_batch()
+    if route == "plan":
+        p = plan.ExecPlan()
+        sink = plan.sink_node(p, plan.join_node(
+            p, plan.source_node(p, probe.batches),
+            plan.source_node(p, [build]), ["s"], None, join_type))
+        p.run()
+        return sink.result.combine_chunks()
+    return acero.Declaration("hashjoin", acero.HashJoinNodeOptions(
+        join_type, ["s"], ["s"]), inputs=[
+        acero.Declaration("table_source", acero.TableSourceNodeOptions(
+            probe)),
+        acero.Declaration("table_source", acero.TableSourceNodeOptions(
+            build))]).to_batch()
+
+
+@pytest.mark.parametrize("inputs", list(S8_INPUTS))
+@pytest.mark.parametrize("join_type", S8_TYPES)
+@pytest.mark.parametrize("route", ["query", "plan", "acero"])
+def test_join_over_a_multi_batch_probe_side_matches_pyarrow(route, join_type,
+                                                          inputs):
+    """S8: the build side is built once and its rows come once (matched,
+    or unmatched once), as pyarrow's Table.join gives them; rows compare
+    as multisets."""
+    probe_rows, build_rows = S8_INPUTS[inputs]
+    tb = pa.Table.from_batches([pa.record_batch(b) for b in probe_rows])
+    rb = pa.record_batch(build_rows)
+    got = _s8_run(route, pt.interop.table_from_arrow(tb, device="cpu"),
+                  pt.interop.record_batch_from_arrow(rb, device="cpu"),
+                  join_type)
+    want = tb.join(pa.Table.from_batches([rb]), "s", join_type=join_type)
+
+    def rows(r):
+        return sorted(repr(sorted(x.items())) for x in r)
+
+    assert rows(_arrow(got)) == rows(want.to_pylist())
+
+
+def test_a_multi_batch_join_builds_its_hash_table_once(monkeypatch):
+    """S8: one hash-table build for the whole query (it was one a batch)."""
+    import arrow1_tpu_torch.ops.join as ops_join
+
+    builds = []
+    real = ops_join._build_table
+
+    def counting(*a):
+        builds.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(ops_join, "_build_table", counting)
+    probe = pt.Table([pt.record_batch({"k": np.arange(i, i + 8)},
+                                      device="cpu") for i in range(0, 40, 8)])
+    build = pt.record_batch({"k": np.arange(0, 40, 3),
+                             "w": np.arange(14)}, device="cpu")
+    out = pt.query(probe).join(build, "k").to_batch()
+    assert len(builds) == 1 and out.num_rows == 14
