@@ -24,10 +24,17 @@ the query layer: ``Table`` (a sequence of batches), the streaming
 (``acero``), ``query()`` and the TPC-H and BASELINE templates
 (``models``). ``kernels.compaction.compact_u64``,
 ``kernels.compaction_split.compact_split`` and ``kernels.probes`` hold
-the kernels of the JAX package's remaining Pallas entry points.
+the kernels of the JAX package's remaining Pallas entry points. The host
+plane: ``native`` (the C++ runtime in ``native/src``, built with g++ at
+first use), ``runtime``, ``memory``, ``thread_pool``, ``cancel``,
+``types``, ``profiler``, and the Arrow IPC stream/file and Feather
+formats (``io``, ``ipc``, ``feather``) with their streams, codecs and
+readahead.
 """
 
-from . import acero, dtypes
+__version__ = "0.1.0"
+
+from . import acero, dtypes, errors
 from .column import (Column, Dictionary, ListColumn, StructColumn,
                      UnionColumn, fixed_size_list_column)
 from .datum import Scalar, scalar
@@ -52,6 +59,106 @@ from .query import Query, query
 from .table import (ChunkedColumn, RecordBatch, Table, concat_batches,
                     concat_columns, record_batch, table)
 
+from .io.compression import (Codec, CompressedInputStream,  # noqa: E402
+                             CompressedOutputStream, compress, decompress)
+from .io.streams import (Buffer, BufferOutputStream,  # noqa: E402
+                         BufferReader, BufferedInputStream,
+                         BufferedOutputStream, MemoryMappedFile, OSFile,
+                         allocate_buffer, create_memory_map, foreign_buffer,
+                         input_stream, memory_map, output_stream, py_buffer)
+from .memory import (LoggingMemoryPool, MemoryPool,  # noqa: E402
+                     ProxyMemoryPool, default_memory_pool, set_memory_pool)
+from .runtime import build_info, runtime_info  # noqa: E402
+from .thread_pool import cpu_count  # noqa: E402
+from .thread_pool import cpu_thread_pool as _cpu_pool  # noqa: E402
+
+
+def total_allocated_bytes(device=None) -> int:
+    """Bytes in use on ``device`` (CUDA unless the caller names the CPU):
+    ``torch.cuda.memory_allocated`` for a card (reference:
+    default_memory_pool()->bytes_allocated); 0 for the CPU, which has no
+    device allocator."""
+    import torch
+
+    dev = resolve_device(device)
+    return int(torch.cuda.memory_allocated(dev)) if dev.type == "cuda" \
+        else 0
+
+
+def system_memory_pool() -> MemoryPool:
+    return default_memory_pool()
+
+
+def logging_memory_pool(parent=None) -> LoggingMemoryPool:
+    return LoggingMemoryPool(parent or default_memory_pool())
+
+
+def proxy_memory_pool(parent=None) -> ProxyMemoryPool:
+    return ProxyMemoryPool(parent or default_memory_pool())
+
+
+def jemalloc_memory_pool() -> MemoryPool:
+    raise errors.NotImplementedError_(
+        "jemalloc is not used here: device memory is managed by PyTorch's "
+        "CUDA caching allocator, host staging by the CPython allocator")
+
+
+def mimalloc_memory_pool() -> MemoryPool:
+    raise errors.NotImplementedError_(
+        "mimalloc is not used here: device memory is managed by PyTorch's "
+        "CUDA caching allocator, host staging by the CPython allocator")
+
+
+def jemalloc_set_decay_ms(ms: int) -> None:
+    raise errors.NotImplementedError_("jemalloc is not used here")
+
+
+def supported_memory_backends():
+    return ["system"]
+
+
+_BASE_POOL = [None]  # pool before logging was enabled
+
+
+def log_memory_allocations(enable: bool = True) -> None:
+    cur = default_memory_pool()
+    if enable:
+        if not isinstance(cur, LoggingMemoryPool):
+            _BASE_POOL[0] = cur
+            set_memory_pool(LoggingMemoryPool(cur))
+    elif isinstance(cur, LoggingMemoryPool):
+        set_memory_pool(_BASE_POOL[0] or MemoryPool())
+
+
+_io_thread_count = [8]
+
+
+def set_cpu_count(n: int) -> None:
+    _cpu_pool().set_capacity(int(n))
+
+
+def io_thread_count() -> int:
+    return _io_thread_count[0]
+
+
+def set_io_thread_count(n: int) -> None:
+    _io_thread_count[0] = int(n)
+
+
+def show_versions() -> None:
+    import sys as _s
+
+    import numpy as _np
+    import torch as _t
+
+    print(f"arrow1_tpu_torch : {__version__}")
+    print(f"torch            : {_t.__version__} (CUDA {_t.version.cuda})")
+    print(f"numpy            : {_np.__version__}")
+    print(f"python           : {_s.version.split()[0]}")
+
+
+show_info = show_versions
+
 __all__ = ["acero", "dtypes", "Column", "Dictionary", "ListColumn",
            "StructColumn", "UnionColumn", "fixed_size_list_column", "Scalar",
            "scalar", "DataType", "list_", "large_list", "fixed_size_list",
@@ -69,4 +176,18 @@ __all__ = ["acero", "dtypes", "Column", "Dictionary", "ListColumn",
            "call_function",
            "list_functions", "RecordBatch", "record_batch", "Query",
            "query", "ChunkedColumn", "Table", "concat_batches",
-           "concat_columns", "table"]
+           "concat_columns", "table", "total_allocated_bytes", "Codec",
+           "CompressedInputStream", "CompressedOutputStream", "compress",
+           "decompress", "Buffer", "BufferOutputStream", "BufferReader",
+           "BufferedInputStream", "BufferedOutputStream",
+           "MemoryMappedFile", "OSFile", "allocate_buffer",
+           "create_memory_map", "foreign_buffer", "input_stream",
+           "memory_map", "output_stream", "py_buffer", "LoggingMemoryPool",
+           "MemoryPool", "ProxyMemoryPool", "default_memory_pool",
+           "set_memory_pool", "system_memory_pool", "logging_memory_pool",
+           "proxy_memory_pool", "jemalloc_memory_pool",
+           "mimalloc_memory_pool", "jemalloc_set_decay_ms",
+           "supported_memory_backends", "log_memory_allocations",
+           "cpu_count", "set_cpu_count", "io_thread_count",
+           "set_io_thread_count", "build_info", "runtime_info",
+           "show_versions", "show_info"]

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 
 from .column import Column, ListColumn, StructColumn, UnionColumn
-from .table import RecordBatch
+from .table import RecordBatch, map_tensors
 
 __all__ = ["move", "same_nested"]
 
@@ -21,27 +21,7 @@ __all__ = ["move", "same_nested"]
 def move(col, device):
     """``col`` (a Column, nested column or RecordBatch) with every tensor
     on ``device``; string pools are shared."""
-    if isinstance(col, RecordBatch):
-        return RecordBatch(tuple(move(c, device) for c in col.columns),
-                           col.names)
-    if isinstance(col, ListColumn):
-        return ListColumn(col.offsets.to(device), move(col.values, device),
-                          col.dtype, validity=_to(col.validity, device))
-    if isinstance(col, StructColumn):
-        return StructColumn(tuple(move(c, device) for c in col.children),
-                            col.names, col.dtype,
-                            validity=_to(col.validity, device))
-    if isinstance(col, UnionColumn):
-        return UnionColumn(col.type_ids.to(device),
-                           tuple(move(c, device) for c in col.children),
-                           col.dtype, offsets=_to(col.offsets, device))
-    return Column(col.data.to(device), col.dtype,
-                  validity=_to(col.validity, device),
-                  dictionary=col.dictionary, data2=_to(col.data2, device))
-
-
-def _to(t, device):
-    return None if t is None else t.to(device)
+    return map_tensors(col, lambda t: t.to(device))
 
 
 def _host(t, k: int) -> np.ndarray:

@@ -10,6 +10,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 from .config import ExecContext, default_context
 from .datum import Datum, as_datum
 from .errors import KeyError_
+from .profiler import _current as _current_profiler
 
 __all__ = ["Function", "FunctionRegistry", "function_registry",
            "register_function", "call_function", "list_functions"]
@@ -86,7 +87,12 @@ def call_function(name: str, args: Sequence[Any], options=None,
                    if options is not None else fn.options_class(**kwargs))
     if options is None and fn.options_class is not None:
         options = fn.options_class()
-    return fn.exec(datums, options, ctx or default_context())
+    ctx = ctx or default_context()
+    prof = _current_profiler()
+    if prof is not None:
+        return prof._measure(name, lambda: fn.exec(datums, options, ctx),
+                             datums)
+    return fn.exec(datums, options, ctx)
 
 
 def list_functions() -> List[str]:

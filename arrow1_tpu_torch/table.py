@@ -19,7 +19,8 @@ from .column import Column, ListColumn, StructColumn, UnionColumn
 from .errors import Invalid, KeyError_
 
 __all__ = ["RecordBatch", "Table", "ChunkedColumn", "record_batch", "table",
-           "concat_batches", "concat_columns", "with_parent_validity"]
+           "concat_batches", "concat_columns", "with_parent_validity",
+           "map_tensors"]
 
 
 class RecordBatch:
@@ -217,6 +218,31 @@ def with_parent_validity(col, validity):
         return StructColumn(col.children, col.names, col.dtype,
                             validity=col.mask() & validity)
     return col   # a union has no validity of its own
+
+
+def map_tensors(x, fn):
+    """``x`` (a Column, nested column or RecordBatch) rebuilt with ``fn``
+    applied to each of its tensors, in one fixed pre-order (so that two
+    walks of one structure meet its tensors in the same order); string
+    pools are shared."""
+    def opt(t):
+        return None if t is None else fn(t)
+
+    if isinstance(x, RecordBatch):
+        return RecordBatch(tuple(map_tensors(c, fn) for c in x.columns),
+                           x.names)
+    if isinstance(x, ListColumn):
+        return ListColumn(fn(x.offsets), map_tensors(x.values, fn), x.dtype,
+                          validity=opt(x.validity))
+    if isinstance(x, StructColumn):
+        return StructColumn(tuple(map_tensors(c, fn) for c in x.children),
+                            x.names, x.dtype, validity=opt(x.validity))
+    if isinstance(x, UnionColumn):
+        return UnionColumn(fn(x.type_ids),
+                           tuple(map_tensors(c, fn) for c in x.children),
+                           x.dtype, offsets=opt(x.offsets))
+    return Column(fn(x.data), x.dtype, validity=opt(x.validity),
+                  dictionary=x.dictionary, data2=opt(x.data2))
 
 
 class ChunkedColumn:

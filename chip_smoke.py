@@ -178,7 +178,24 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    and Q3 also the numpy oracle); prints each call's wall (median of 3),
    peak device memory, bytes through all_to_all_single and K2 launches,
    which must be above 0. Phase 12 also checks that Q3 builds its hash
-   table once and Q5 twice (one build a join).
+   table once and Q5 twice (one build a join);
+21. (run after 20) the host plane over phase 12's SF10 line items: writes
+   them to an Arrow IPC file with io.ipc.write_ipc in a fresh temporary
+   directory (its free bytes printed first; a short disk fails the
+   phase), reads the file straight onto the card with read_ipc, and runs
+   TPC-H Q1 on it (bit-equal to Q1 over the in-memory table and equal to
+   the numpy oracle) and Q1 by year(l_shipdate) (the oracle), with their
+   K2 and K3 launches counted; reads the file again through
+   io.prefetch.prefetch_batches (CPU decode, then the card) and holds the
+   batches against the first read; writes the first 8 batches with LZ4
+   and reads them back; writes the orders batch as Feather V2
+   (feather.write_table/read_table) and V1 (io.feather1) and reads both
+   back; profiles filter, add and sum over the read columns with
+   profiler.KernelProfiler (its bytes against the tensors' own); prints
+   build_info, runtime_info and total_allocated_bytes, each wall with
+   GB/s and the peak device memory; the native library (native/src,
+   built with g++) must have been used, and no pyarrow, flatbuffers or
+   zstandard module imported.
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -192,9 +209,12 @@ it, it exits non-zero and prints no result. Any failure exits non-zero.
 """
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -231,9 +251,8 @@ TEMPORAL_ROWS = 10_000_000           # each temporal column's rows
 TEMPORAL_WINDOW = 1_000_000          # rows held against the CPU
 TEMPORAL_DISTINCT = 150_000          # strftime/strptime's pool (SF1-sized)
 Q1_CUTOFF = 10471   # 1998-09-02 = date '1998-12-01' - 90 days (TPC-H Q1)
-# HBM bandwidth from NVIDIA's data sheets, by device name (first match)
-PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
-                    ("H200", 4.8e12), ("H100", 3.35e12))
+HOST_PLANE_LZ4_BATCHES = 8           # phase 21's compressed leg
+HOST_PLANE_PROFILE_REPEATS = 5       # phase 21's profiled calls of each
 
 
 def _card_line() -> str:
@@ -244,11 +263,12 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _peak(name: str) -> float:
-    for key, rate in PEAK_BYTES_PER_S:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no HBM bandwidth on record for {name!r}")
+def _peak() -> float:
+    """The card's data-sheet HBM bandwidth, from the port's one table
+    (profiler.HBM_PEAK); raises for a card it does not know."""
+    from arrow1_tpu_torch import profiler
+
+    return profiler.hbm_peak_bytes_per_sec(DEVICE)
 
 
 def _bits(t):
@@ -1660,7 +1680,6 @@ def phase_temporal(pt, dev, counted, lt, want):
     each against the CPU over the window, with the zone's offset table
     on the card. Returns the launches."""
     from arrow1_tpu_torch import compute_temporal as ct
-    from arrow1_tpu_torch import dtypes as dt
     from arrow1_tpu_torch import models
     from arrow1_tpu_torch.utils import tzif
 
@@ -1699,22 +1718,10 @@ def phase_temporal(pt, dev, counted, lt, want):
 
     # part 2: Q1 at SF10 on a date32 ship date
     t0 = time.perf_counter()
-    lt32 = pt.Table([b.set_column("l_shipdate", pt.Column(
-        b["l_shipdate_days"].data.to(torch.int32), dt.date32))
-        for b in lt.batches])
-    cutoff = pt.scalar(Q1_CUTOFF, dt.date32)
+    lt32 = _date32_lineitem(pt, lt)
 
     def q1(key, aggs):
-        return (pt.query(lt32)
-                .filter(pt.field("l_shipdate") <= cutoff)
-                .project([pt.field("l_returnflag"), pt.field("l_quantity"),
-                          pt.field("l_extendedprice"),
-                          pt.call("year", [pt.field("l_shipdate")])],
-                         ["l_returnflag", "l_quantity", "l_extendedprice",
-                          "l_year"])
-                .group_by([key], aggs)
-                .order_by([(key, "ascending")])
-                .to_batch())
+        return _q1_date32(pt, lt32, key, aggs)
 
     queries = [
         ("by l_returnflag", "q1_spec", lambda: q1(
@@ -2805,6 +2812,323 @@ def _check_config3(out, inp):
         raise AssertionError("config 3: the sort is not stable")
 
 
+def _tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _datum_bytes(x) -> int:
+    """A flat Column's, a RecordBatch's or a Scalar's tensor bytes, summed
+    here without the profiler's walk."""
+    if isinstance(x, torch.Tensor):
+        return _tensor_bytes(x)
+    if hasattr(x, "columns"):
+        return sum(_datum_bytes(c) for c in x.columns)
+    if hasattr(x, "data"):
+        return _tensor_bytes(x.data, x.validity, x.data2)
+    return _tensor_bytes(x.value) if isinstance(x.value, torch.Tensor) \
+        else 0
+
+
+def _same_column_bits(got, want, label):
+    """Two flat columns bit for bit: data (floats as bits), validity, the
+    second data tensor, and the decoded strings (pools may differ in
+    order: each code is mapped to the other pool's on the card)."""
+    if got.dtype != want.dtype or got.length != want.length:
+        raise AssertionError(f"{label}: {got!r} against {want!r}")
+    if (got.validity is None) != (want.validity is None) or (
+            got.validity is not None and
+            not torch.equal(got.validity, want.validity)):
+        raise AssertionError(f"{label}: validity differs")
+    if (got.data2 is None) != (want.data2 is None) or (
+            got.data2 is not None and not torch.equal(got.data2,
+                                                      want.data2)):
+        raise AssertionError(f"{label}: data2 differs")
+    g, w = got.data, want.data
+    if got.dictionary is not None:
+        index = {v: i for i, v in enumerate(want.dictionary.values.tolist())}
+        remap = torch.tensor([index.get(v, -1) for v in
+                              got.dictionary.values.tolist()],
+                             dtype=torch.int64, device=g.device)
+        g = remap[g.to(torch.int64)] if len(remap) else g.to(torch.int64)
+        w = w.to(torch.int64)
+    g, w = _bits(g), _bits(w)
+    if got.validity is not None:   # a null slot's value is not compared
+        g, w = (torch.where(got.validity, t, torch.zeros_like(t))
+                for t in (g, w))
+    if not torch.equal(g, w):
+        raise AssertionError(f"{label}: values differ")
+
+
+def _same_batches(got, want, label):
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} batches, not "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.names != w.names:
+            raise AssertionError(f"{label}: batch {i} columns {g.names}")
+        for name in w.names:
+            _same_column_bits(g[name], w[name], f"{label} batch {i} {name}")
+
+
+def _date32_lineitem(pt, table):
+    """The line items with l_shipdate, a date32 column made from
+    l_shipdate_days (views, but for the int32 copy)."""
+    from arrow1_tpu_torch import dtypes as dt
+
+    return pt.Table([b.set_column("l_shipdate", pt.Column(
+        b["l_shipdate_days"].data.to(torch.int32), dt.date32))
+        for b in table.batches])
+
+
+def _q1_date32(pt, t32, key, aggs):
+    """TPC-H Q1 with the spec's ship-date predicate on the date32 column,
+    projecting year(l_shipdate), grouped by ``key`` (by the year: a dense
+    integer key, so K3 sums it)."""
+    from arrow1_tpu_torch import dtypes as dt
+
+    return (pt.query(t32)
+            .filter(pt.field("l_shipdate") <= pt.scalar(Q1_CUTOFF,
+                                                        dt.date32))
+            .project([pt.field("l_returnflag"), pt.field("l_quantity"),
+                      pt.field("l_extendedprice"),
+                      pt.call("year", [pt.field("l_shipdate")])],
+                     ["l_returnflag", "l_quantity", "l_extendedprice",
+                      "l_year"])
+            .group_by([key], aggs)
+            .order_by([(key, "ascending")])
+            .to_batch())
+
+
+def phase_host_plane(pt, dev, counted, lt, ob, want):
+    """Phase 21: the SF10 line items through an Arrow IPC file and back
+    into Q1, the prefetch, LZ4 and Feather legs, the profiler and the
+    runtime's reports. Returns the launch counts of its counted runs."""
+    from arrow1_tpu_torch import (compute, feather, models, native, profiler,
+                                  runtime)
+    from arrow1_tpu_torch.io import feather1
+    from arrow1_tpu_torch.io import ipc as pio
+    from arrow1_tpu_torch.io.prefetch import prefetch_batches
+
+    card = _card_line()
+    if not native.native_available() or not \
+            native.library_path().exists():
+        raise AssertionError("the native library was not built from "
+                             "native/src")
+    launches = {kern.__name__: 0 for kern in counted}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_li = lt.num_rows
+    table_bytes = sum(_datum_bytes(b) for b in lt.batches)
+    tmp = tempfile.mkdtemp(prefix="a1t-host-plane-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"host plane: {tmp} has {free} bytes free; the line items "
+              f"hold {table_bytes} bytes on the card", flush=True)
+        if free < 2 * table_bytes:
+            raise AssertionError(f"host plane: {free} bytes free in {tmp}, "
+                                 f"fewer than twice the table's "
+                                 f"{table_bytes}")
+        path = os.path.join(tmp, "lineitem.arrow")
+
+        # 1-2: write, read straight onto the card, Q1 from the file
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pio.write_ipc(lt, path)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ft = pio.read_ipc(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        if ft.batches[0]["l_quantity"].device.type != torch.device(dev).type:
+            raise AssertionError("read_ipc did not place the batches on "
+                                 "the card")
+        _same_batches(ft.batches, lt.batches, "IPC file read")
+        print(f"host plane: wrote {n_li} line items in "
+              f"{len(lt.batches)} batches, {size} bytes, in "
+              f"{write_s:.3f} s ({size / write_s / 1e9:.3f} GB/s, page "
+              f"cache, not flushed); read onto the card in {read_s:.3f} s "
+              f"({size / read_s / 1e9:.3f} GB/s, warm page cache); equal "
+              f"to the table bit for bit [{card}]", flush=True)
+        in_memory = models.q1_pricing_summary(lt)
+        ft32 = _date32_lineitem(pt, ft)
+        queries = [("Q1", lambda: models.q1_pricing_summary(ft), "q1"),
+                   ("Q1 by year", lambda: _q1_date32(
+                       pt, ft32, "l_year", [("l_quantity", "sum"),
+                                            ("l_quantity", "count")]),
+                    "q1_years")]
+        for label, run, oracle in queries:
+            run()   # warm-up (uncounted)
+            torch.cuda.synchronize()
+            for kern in counted:
+                kern.launches = 0
+            out = run()
+            torch.cuda.synchronize()
+            run_launches = {kern.__name__: kern.launches for kern in counted}
+            for kname, count in run_launches.items():
+                launches[kname] += count
+            _check_sf10(out, want[oracle], f"host plane {label}")
+            if label == "Q1":
+                if run_launches["compact"] <= 0:
+                    raise AssertionError("host plane Q1 launched no K2")
+                for name in in_memory.names:
+                    _same_column_bits(out[name], in_memory[name],
+                                      f"host plane Q1 {name} against the "
+                                      "in-memory table")
+            elif run_launches["segment_sums"] <= 0:
+                raise AssertionError("host plane Q1 by year launched no K3")
+            walls = [_wall_ms(run)[1] for _ in range(3)]
+            print(f"host plane: TPC-H SF10 {label} from the IPC file: equal "
+                  f"to the numpy oracle"
+                  + (" and bit-equal to Q1 over the in-memory table"
+                     if label == "Q1" else "")
+                  + f"; wall {statistics.median(walls):.3f} ms (median of "
+                  f"3); one run: K2 {run_launches['compact']}, K3 "
+                  f"{run_launches['segment_sums']} [{card}]", flush=True)
+            del out
+
+        # 3: CPU decode in the background, batches moved to the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = list(prefetch_batches(pio.read_ipc(path, batched=True,
+                                                 device="cpu"),
+                                    readahead=2, device=dev))
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        _same_batches(pre, ft.batches, "prefetch read")
+        print(f"host plane: prefetch read (CPU decode, readahead 2, then "
+              f"the card) {pre_s:.3f} s ({size / pre_s / 1e9:.3f} GB/s), "
+              f"its batches equal the first read's [{card}]", flush=True)
+        del pre
+
+        # 4: LZ4 on the first batches
+        head = pt.Table(lt.batches[:HOST_PLANE_LZ4_BATCHES])
+        plain_path = os.path.join(tmp, "head.arrow")
+        lz4_path = os.path.join(tmp, "head.lz4.arrow")
+        pio.write_ipc(head, plain_path)
+        t0 = time.perf_counter()
+        pio.write_ipc(head, lz4_path, compression="lz4")
+        lz4_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = pio.read_ipc(lz4_path)
+        torch.cuda.synchronize()
+        lz4_read_s = time.perf_counter() - t0
+        _same_batches(back.batches, head.batches, "LZ4 read")
+        plain_size = os.path.getsize(plain_path)
+        lz4_size = os.path.getsize(lz4_path)
+        print(f"host plane: LZ4 over {head.num_rows} rows: {lz4_size} of "
+              f"{plain_size} bytes (ratio {plain_size / lz4_size:.3f}); "
+              f"write {lz4_write_s:.3f} s, read onto the card "
+              f"{lz4_read_s:.3f} s ({plain_size / lz4_read_s / 1e9:.3f} "
+              f"GB/s of uncompressed data); equal to the table [{card}]",
+              flush=True)
+        del back, head
+
+        # 5: Feather V2 and V1 on the orders batch
+        v2_path = os.path.join(tmp, "orders.feather")
+        t0 = time.perf_counter()
+        feather.write_table(ob, v2_path)
+        v2_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v2 = feather.read_table(v2_path)
+        torch.cuda.synchronize()
+        v2_read_s = time.perf_counter() - t0
+        _same_batches(v2.batches, [ob], "Feather V2")
+        v1_path = os.path.join(tmp, "orders.v1.feather")
+        t0 = time.perf_counter()
+        with open(v1_path, "wb") as f:
+            feather1.write_feather_v1(ob, f)
+        v1_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(v1_path, "rb") as f:
+            v1 = feather1.read_feather_v1(f.read(), device=dev)
+        torch.cuda.synchronize()
+        v1_read_s = time.perf_counter() - t0
+        _same_batches([v1], [ob], "Feather V1")
+        print(f"host plane: Feather V2 (LZ4) of the {ob.num_rows} orders: "
+              f"{os.path.getsize(v2_path)} bytes, write {v2_write_s:.3f} "
+              f"s, read {v2_read_s:.3f} s; Feather V1: "
+              f"{os.path.getsize(v1_path)} bytes, write {v1_write_s:.3f} s, "
+              f"read {v1_read_s:.3f} s; both equal to the batch [{card}]",
+              flush=True)
+        del v2, v1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 6: the profiler over the read columns
+    price = ft.column("l_extendedprice").combine_chunks()
+    disc = ft.column("l_discount").combine_chunks()
+    days = ft.column("l_shipdate_days").combine_chunks()
+    batch = pt.RecordBatch((price, disc), ("l_extendedprice", "l_discount"))
+    mask = compute.less_equal(days, pt.scalar(10000))
+    calls = (("filter", lambda: compute.filter(batch, mask)),
+             ("add", lambda: compute.add(price, disc)),
+             ("sum", lambda: compute.sum(price)))
+    for _, run in calls:
+        run()   # warm-up (unprofiled, uncounted)
+    torch.cuda.synchronize()
+    for kern in counted:
+        kern.launches = 0
+    with profiler.KernelProfiler(dev) as prof:
+        for _ in range(HOST_PLANE_PROFILE_REPEATS):
+            outs = {name: run() for name, run in calls}
+    torch.cuda.synchronize()
+    for kern in counted:
+        launches[kern.__name__] += kern.launches
+    want_bytes = {"filter": (_datum_bytes(batch) + _datum_bytes(mask),
+                             _datum_bytes(outs["filter"])),
+                  "add": (_datum_bytes(price) + _datum_bytes(disc),
+                          _datum_bytes(outs["add"])),
+                  "sum": (_datum_bytes(price), _datum_bytes(outs["sum"]))}
+    names = [name for name, _ in calls]
+    if [r.name for r in prof.records] != \
+            names * HOST_PLANE_PROFILE_REPEATS:
+        raise AssertionError(f"profiler recorded {prof.records}")
+    hbm = profiler.hbm_peak_bytes_per_sec(dev)
+    for r in prof.records:
+        if (r.bytes_in, r.bytes_out) != want_bytes[r.name]:
+            raise AssertionError(f"profiler: {r.name} counted "
+                                 f"{(r.bytes_in, r.bytes_out)} bytes, the "
+                                 f"tensors hold {want_bytes[r.name]}")
+    for name in names:
+        recs = [r for r in prof.records if r.name == name]
+        walls = [r.wall_s for r in recs]
+        wall = statistics.median(walls)
+        moved = recs[0].bytes_moved
+        print(f"host plane profile: {name} over {price.length} rows "
+              f"{wall * 1e3:.3f} ms (median of "
+              f"{HOST_PLANE_PROFILE_REPEATS} after a warm-up, "
+              f"{min(walls) * 1e3:.3f}-{max(walls) * 1e3:.3f} ms, each "
+              f"timed on the host between two synchronizes), "
+              f"{moved / 1e6:.3f} MB, {100 * moved / wall / hbm:.1f}% of "
+              f"{hbm:.3g} B/s [{card}]", flush=True)
+    print(prof.report(), flush=True)
+    del price, disc, days, batch, mask, outs, ft
+
+    # 7-8: the runtime's reports; no pyarrow, flatbuffers or zstandard
+    print(f"host plane: {runtime.build_info()}; "
+          f"{runtime.runtime_info()}", flush=True)
+    alloc, torch_alloc = pt.total_allocated_bytes(), \
+        torch.cuda.memory_allocated()
+    stats = runtime.device_memory_stats()
+    print(f"host plane: total_allocated_bytes {alloc}, "
+          f"torch.cuda.memory_allocated {torch_alloc}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(device_memory_stats peak {stats.get('peak_bytes_in_use')}) "
+          f"[{card}]", flush=True)
+    if alloc != torch_alloc:
+        raise AssertionError("total_allocated_bytes differs from "
+                             "torch.cuda.memory_allocated")
+    if not native.native_available():
+        raise AssertionError("the native library was unloaded")
+    loaded = [m for m in ("pyarrow", "flatbuffers", "zstandard")
+              if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"the host plane imported {loaded}")
+    return launches
+
+
 def phase_config3(dev):
     """BASELINE config 3 through models.baseline_sort."""
     import arrow1_tpu_torch.profile_main_path as pm
@@ -2852,7 +3176,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _card_line()
-    peak = _peak(name)
+    peak = _peak()
     t0 = time.perf_counter()
     build.build(build.TARGETS)
     build_s = time.perf_counter() - t0
@@ -3040,6 +3364,12 @@ def main() -> int:
                                       sf10_orders, sf10_want)
     print(f"distributed main path launches: {dist_launches}", flush=True)
     for kname, count in dist_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    host_launches = phase_host_plane(pt, dev, all_kernels, sf10_lineitem,
+                                     sf10_orders, sf10_want)
+    print(f"host plane main path launches: {host_launches}", flush=True)
+    for kname, count in host_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     del sf10_lineitem, sf10_orders
     torch.cuda.empty_cache()

@@ -1307,3 +1307,77 @@ def test_nested_calls_on_card_match_cpu(cuda):
     assert card["list_value_length"].data.sum().item() == n
     assert card["binary_join"].to_pylist() == \
         names[cname].tolist()
+
+
+# ---- the host plane: an IPC file read straight onto the card ---------------
+
+def test_ipc_file_read_onto_card_then_k2(cuda, tmp_path):
+    """A seeded batch of many types goes through an Arrow IPC file (the
+    port's own writer and reader, no pyarrow) onto the card by default,
+    then through filter (one K2 launch), and equals the same filter of
+    the batch built in memory; the float columns bit for bit."""
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch.compute_nested import move, same_nested
+    from arrow1_tpu_torch.io import ipc as pio
+
+    rng = np.random.default_rng(21)
+    n = 5000
+    f = rng.standard_normal(n)
+    f[::97] = np.nan
+    f[::89] = -0.0
+    valid = rng.random(n) > 0.1
+    lens = np.where(valid, rng.integers(0, 4, n), 0)   # a null list: empty
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    batch = pt.from_reference_arrays(
+        ["i", "f", "u", "b", "s", "d", "dec", "l"],
+        [(rng.integers(-1 << 40, 1 << 40, n), valid, None), (f, None, None),
+         (rng.integers(0, 1 << 63, n, dtype=np.uint64) * 2 + 1, None, None),
+         (rng.random(n) < 0.5, None, None),
+         (rng.integers(0, 3, n).astype(np.int32), rng.random(n) > 0.05,
+          np.array(["AIR", "RAIL", "SHIP"], dtype=object)),
+         (rng.integers(8000, 11000, n).astype(np.int32), None, None),
+         (rng.integers(-10**12, 10**12, n), valid, None),
+         {"type": pt.list_(pt.float32), "offsets": offsets,
+          "values": (rng.standard_normal(offsets[-1]).astype(np.float32),
+                     None, None), "validity": valid}], cuda)
+    cols = list(batch.columns)
+    cols[5] = pt.Column(cols[5].data, dt.date32)
+    cols[6] = pt.Column(cols[6].data, dt.decimal128(15, 2),
+                        validity=cols[6].validity,
+                        data2=(cols[6].data < 0).to(torch.int64).neg())
+    batch = pt.RecordBatch(tuple(cols), batch.names)
+    path = tmp_path / "batch.arrow"
+    pio.write_ipc(batch, path)
+    back = pio.read_ipc(path)
+    assert len(back.batches) == 1
+    back = back.batches[0]
+    assert all(c.device.type == "cuda" for c in back.columns)
+    outs = []
+    for b in (back, batch):
+        mask = pt.call_function("greater", [b["d"],
+                                            pt.scalar(9000, dt.date32)])
+        before = compact.launches
+        outs.append(pt.call_function("filter", [b, mask]))
+        assert compact.launches > before
+    got, want = outs
+    assert same_nested(move(got, "cpu"), move(want, "cpu")) is None
+    assert torch.equal(_bits(got["f"].data), _bits(want["f"].data))
+
+
+def test_runtime_reports_the_card(cuda, tmp_path):
+    """runtime.profile writes a Chrome trace of a card run; the memory
+    reports read the caching allocator."""
+    from arrow1_tpu_torch import runtime
+
+    with runtime.profile(str(tmp_path)) as prof:
+        x = torch.arange(1 << 20, device=cuda)
+        (x * 2).sum().item()
+    assert prof.trace_path.startswith(str(tmp_path))
+    assert (tmp_path / prof.trace_path.rsplit("/", 1)[-1]).stat().st_size > 0
+    stats = runtime.device_memory_stats()
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated() == \
+        pt.total_allocated_bytes()
+    assert stats["bytes_limit"] > stats["peak_bytes_in_use"] > 0
+    info = runtime.runtime_info()
+    assert info.backend == "cuda" and info.device_kind == \
+        torch.cuda.get_device_name(0)

@@ -23,65 +23,125 @@ PORT_FILES = sorted((ROOT / "arrow1_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
-def test_imports_with_jax_and_pyarrow_blocked():
-    code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['pyarrow'] = None\n"
-            "import arrow1_tpu_torch\n"
-            "import arrow1_tpu_torch.exec.compiled\n"
-            "import arrow1_tpu_torch.kernels.compaction\n"
-            "import arrow1_tpu_torch.kernels.fused_ops\n"
-            "import arrow1_tpu_torch.ops.padded\n"
-            "import arrow1_tpu_torch.ops.hash\n"
-            "import arrow1_tpu_torch.ops.aggregate\n"
-            "import arrow1_tpu_torch.ops.groupby\n"
-            "import arrow1_tpu_torch.kernels.segsum2\n"
-            "import arrow1_tpu_torch.kernels.segsum\n"
-            "import arrow1_tpu_torch.compute\n"
-            "import arrow1_tpu_torch.kernels.hashtable\n"
-            "import arrow1_tpu_torch.ops.dictionary\n"
-            "import arrow1_tpu_torch.ops.join\n"
-            "import arrow1_tpu_torch.ops.sort\n"
-            "import arrow1_tpu_torch.acero\n"
-            "import arrow1_tpu_torch.query\n"
-            "import arrow1_tpu_torch.exec.plan\n"
-            "import arrow1_tpu_torch.exec.streaming\n"
-            "import arrow1_tpu_torch.models\n"
-            "import arrow1_tpu_torch.kernels.compaction_split\n"
-            "import arrow1_tpu_torch.kernels.probes\n"
-            "import arrow1_tpu_torch.config\n"
-            "import arrow1_tpu_torch.ops.validity\n"
-            "import arrow1_tpu_torch.ops.cast\n"
-            "import arrow1_tpu_torch.ops.bitwise\n"
-            "import arrow1_tpu_torch.ops.math\n"
-            "import arrow1_tpu_torch.ops.cumulative\n"
-            "import arrow1_tpu_torch.ops.conditional\n"
-            "import arrow1_tpu_torch.ops.set_lookup\n"
-            "import arrow1_tpu_torch.ops.ree\n"
-            "import arrow1_tpu_torch.ops.strings\n"
-            "import arrow1_tpu_torch.ops.strings_device\n"
-            "import arrow1_tpu_torch.ops.strings_host\n"
-            "import arrow1_tpu_torch.ops.formatting\n"
-            "import arrow1_tpu_torch.compute_strings\n"
-            "import arrow1_tpu_torch.ops.temporal\n"
-            "import arrow1_tpu_torch.utils.tzif\n"
-            "import arrow1_tpu_torch.compute_temporal\n"
-            "import arrow1_tpu_torch.ops.nested\n"
-            "import arrow1_tpu_torch.compute_nested\n"
-            "import arrow1_tpu_torch.parallel\n"
-            "import arrow1_tpu_torch.parallel.mesh\n"
-            "import arrow1_tpu_torch.parallel.shuffle\n"
-            "import arrow1_tpu_torch.parallel.distributed\n"
-            "import arrow1_tpu_torch.parallel.multihost\n"
-            "import arrow1_tpu_torch.exec.dist_compiled\n"
-            "import torch.distributed as dist\n"
-            "assert not dist.is_initialized()\n"
-            "assert len(arrow1_tpu_torch.list_functions()) == 307\n"
-            "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
-            " for m in sys.modules)\n")
+# one interpreter for both blocked-import checks: each section reports
+# on its own line, so one failing does not hide the other
+_BLOCKED = ("import sys, traceback\n"
+            "for m in ('jax', 'pyarrow', 'flatbuffers', 'zstandard',"
+            " 'pandas'):\n"
+            "    sys.modules[m] = None\n"
+            "def section(name, code):\n"
+            "    try:\n"
+            "        exec(code, {})\n"
+            "        print('SECTION', name, 'OK')\n"
+            "    except BaseException:\n"
+            "        print('SECTION', name, 'FAILED')\n"
+            "        traceback.print_exc(file=sys.stdout)\n")
+
+PORT_IMPORTS = ("import sys\n"
+               "import arrow1_tpu_torch\n"
+               "import arrow1_tpu_torch.exec.compiled\n"
+               "import arrow1_tpu_torch.kernels.compaction\n"
+               "import arrow1_tpu_torch.kernels.fused_ops\n"
+               "import arrow1_tpu_torch.ops.padded\n"
+               "import arrow1_tpu_torch.ops.hash\n"
+               "import arrow1_tpu_torch.ops.aggregate\n"
+               "import arrow1_tpu_torch.ops.groupby\n"
+               "import arrow1_tpu_torch.kernels.segsum2\n"
+               "import arrow1_tpu_torch.kernels.segsum\n"
+               "import arrow1_tpu_torch.compute\n"
+               "import arrow1_tpu_torch.kernels.hashtable\n"
+               "import arrow1_tpu_torch.ops.dictionary\n"
+               "import arrow1_tpu_torch.ops.join\n"
+               "import arrow1_tpu_torch.ops.sort\n"
+               "import arrow1_tpu_torch.acero\n"
+               "import arrow1_tpu_torch.query\n"
+               "import arrow1_tpu_torch.exec.plan\n"
+               "import arrow1_tpu_torch.exec.streaming\n"
+               "import arrow1_tpu_torch.models\n"
+               "import arrow1_tpu_torch.kernels.compaction_split\n"
+               "import arrow1_tpu_torch.kernels.probes\n"
+               "import arrow1_tpu_torch.config\n"
+               "import arrow1_tpu_torch.ops.validity\n"
+               "import arrow1_tpu_torch.ops.cast\n"
+               "import arrow1_tpu_torch.ops.bitwise\n"
+               "import arrow1_tpu_torch.ops.math\n"
+               "import arrow1_tpu_torch.ops.cumulative\n"
+               "import arrow1_tpu_torch.ops.conditional\n"
+               "import arrow1_tpu_torch.ops.set_lookup\n"
+               "import arrow1_tpu_torch.ops.ree\n"
+               "import arrow1_tpu_torch.ops.strings\n"
+               "import arrow1_tpu_torch.ops.strings_device\n"
+               "import arrow1_tpu_torch.ops.strings_host\n"
+               "import arrow1_tpu_torch.ops.formatting\n"
+               "import arrow1_tpu_torch.compute_strings\n"
+               "import arrow1_tpu_torch.ops.temporal\n"
+               "import arrow1_tpu_torch.utils.tzif\n"
+               "import arrow1_tpu_torch.compute_temporal\n"
+               "import arrow1_tpu_torch.ops.nested\n"
+               "import arrow1_tpu_torch.compute_nested\n"
+               "import arrow1_tpu_torch.parallel\n"
+               "import arrow1_tpu_torch.parallel.mesh\n"
+               "import arrow1_tpu_torch.parallel.shuffle\n"
+               "import arrow1_tpu_torch.parallel.distributed\n"
+               "import arrow1_tpu_torch.parallel.multihost\n"
+               "import arrow1_tpu_torch.exec.dist_compiled\n"
+               "import torch.distributed as dist\n"
+               "assert not dist.is_initialized()\n"
+               "assert len(arrow1_tpu_torch.list_functions()) == 307\n"
+               "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
+               " for m in sys.modules)\n")
+
+HOST_PLANE = ("native", "types", "cancel", "thread_pool", "memory", "runtime",
+              "utils.timing", "profiler", "io", "io.streams",
+              "io.compression", "io._flatbuf", "io.ipc_native", "io.ipc",
+              "ipc", "io.feather1", "feather", "io.prefetch")
+
+HOST_PLANE_RUN = ("import sys, io, importlib\n"
+                  f"for m in {HOST_PLANE!r}:\n"
+                  "    importlib.import_module('arrow1_tpu_torch.' + m)\n"
+                  "import numpy as np\n"
+                  "import arrow1_tpu_torch as pt\n"
+                  "from arrow1_tpu_torch.io import ipc_native, feather1\n"
+                  "b = pt.record_batch({'x': np.arange(5), 's': np.array("
+                  "['a', None, 'b', 'a', 'c'], dtype=object)}, device='cpu')\n"
+                  "buf = io.BytesIO()\n"
+                  "ipc_native.write_file(buf, [b, b], compression='lz4')\n"
+                  "back = ipc_native.read_file(buf.getvalue(), device='cpu')\n"
+                  "assert back[1]['s'].to_pylist() == "
+                  "['a', None, 'b', 'a', 'c']\n"
+                  "v1 = io.BytesIO()\n"
+                  "feather1.write_feather_v1(b, v1)\n"
+                  "got = feather1.read_feather_v1(v1.getvalue(), "
+                  "device='cpu')\n"
+                  "assert got['x'].to_pylist() == list(range(5))\n"
+                  "assert pt.build_info().native_library\n"
+                  "assert not any(m == 'arrow1_tpu' or "
+                  "m.startswith('arrow1_tpu.') for m in sys.modules)\n")
+
+
+@pytest.fixture(scope="module")
+def blocked_run():
+    """stdout of one interpreter with jax, pyarrow, flatbuffers,
+    zstandard and pandas blocked that imports the port and drives its
+    host plane."""
+    code = (_BLOCKED + f"section('port', {PORT_IMPORTS!r})\n"
+            f"section('host plane', {HOST_PLANE_RUN!r})\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_imports_with_jax_and_pyarrow_blocked(blocked_run):
+    assert "SECTION port OK" in blocked_run, blocked_run
+
+
+def test_host_plane_imports_and_runs_without_its_optional_packages(
+        blocked_run):
+    """The host plane imports, and writes and reads an LZ4 IPC file and a
+    Feather V1 file, with jax, pyarrow, flatbuffers, zstandard and pandas
+    blocked; nothing imports the JAX package."""
+    assert "SECTION host plane OK" in blocked_run, blocked_run
 
 
 def _imports(path):
