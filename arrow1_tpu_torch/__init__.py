@@ -29,7 +29,9 @@ plane: ``native`` (the C++ runtime in ``native/src``, built with g++ at
 first use), ``runtime``, ``memory``, ``thread_pool``, ``cancel``,
 ``types``, ``profiler``, and the Arrow IPC stream/file and Feather
 formats (``io``, ``ipc``, ``feather``) with their streams, codecs and
-readahead.
+readahead; CSV, JSON, Parquet and ORC (``io`` and the pyarrow-named
+facades ``csv``, ``json``, ``parquet`` and ``orc``), whose readers put
+their columns on CUDA unless the caller names the CPU.
 """
 
 __version__ = "0.1.0"
@@ -71,6 +73,9 @@ from .memory import (LoggingMemoryPool, MemoryPool,  # noqa: E402
 from .runtime import build_info, runtime_info  # noqa: E402
 from .thread_pool import cpu_count  # noqa: E402
 from .thread_pool import cpu_thread_pool as _cpu_pool  # noqa: E402
+
+# pyarrow-named io facades (import arrow1_tpu_torch.parquet as pq, ...)
+from . import csv, json, orc, parquet  # noqa: E402,F401
 
 
 def total_allocated_bytes(device=None) -> int:

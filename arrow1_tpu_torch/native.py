@@ -6,6 +6,8 @@ Components (see native/src/*.cpp):
 - hash + memo table           <- cpp/src/arrow/util/hashing.h
 - LZ4 block and frame codecs  <- cpp/src/arrow/util/compression_lz4.cc
 - ragged dictionary gather (the IPC writer's string materialization)
+  and Parquet's PLAIN byte-array encoder
+- Snappy block decoder          <- the codec Parquet and ORC pages use
 
 The library is built at first use with the C++ compiler (``$CXX``, else
 ``g++``): one compile of each ``native/src/*.cpp`` at once, then one link
@@ -34,7 +36,8 @@ import numpy as np
 
 __all__ = ["native_available", "load_library", "library_path", "hash_bytes",
            "MemoTable", "lz4_frame_compress", "lz4_frame_decompress",
-           "lz4_block_decompress", "ragged_gather"]
+           "lz4_block_decompress", "ragged_gather", "snappy_decompress",
+           "plain_byte_array"]
 
 _ROOT = Path(__file__).resolve().parents[1]
 NATIVE_SRC = _ROOT / "native" / "src"
@@ -140,6 +143,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "a1t_ragged_gather": (i64, [c_void_p, i64] + [c_void_p] * 5 + [i64]),
         "a1t_ragged_gather64": (i64, [c_void_p, i64] + [c_void_p] * 5
                                 + [i64]),
+        # parquet PLAIN byte-array encode (codes, u_starts, pool -> bytes)
+        "a1t_plain_byte_array": (i64, [c_void_p, i64] + [c_void_p] * 4
+                                 + [i64]),
+        # snappy block format
+        "a1t_snappy_uncompressed_len": (i64, [c_char_p, i64]),
+        "a1t_snappy_decompress": (i64, [c_char_p, i64, c_char_p, i64]),
     }
     for fn in ("a1t_lz4_block_compress", "a1t_lz4_block_decompress",
                "a1t_lz4_frame_compress", "a1t_lz4_frame_decompress"):
@@ -325,3 +334,43 @@ def ragged_gather(codes, u_starts, pool, row_valid, total: int,
     if got != total:
         return None
     return offsets, data[:total]
+
+
+def snappy_decompress(data, uncompressed_size: Optional[int] = None
+                      ) -> bytes:
+    """Snappy block decompress (native/src/snappy.cpp). The output size is
+    the stream's preamble, which must equal ``uncompressed_size`` where the
+    caller knows it; malformed input raises ``ValueError``."""
+    lib = _require()
+    data = bytes(data)
+    usize = int(lib.a1t_snappy_uncompressed_len(data, len(data)))
+    if usize < 0 or (uncompressed_size is not None
+                     and usize != uncompressed_size):
+        raise ValueError(f"snappy: bad preamble ({usize} bytes, "
+                         f"{uncompressed_size} expected)")
+    out = ctypes.create_string_buffer(max(usize, 1))
+    n = lib.a1t_snappy_decompress(data, len(data), out, usize)
+    if n != usize:
+        raise ValueError("snappy decompress failed (malformed input)")
+    return out.raw[:n]
+
+
+def plain_byte_array(codes, u_starts, pool, row_valid, cap: int):
+    """Parquet PLAIN byte-array encode (native/src/ragged.cpp): each kept
+    row's value as <u32 LE length><bytes>. Raises ``RuntimeError`` when
+    the library is unavailable and ``ValueError`` when ``cap`` bytes are
+    too few."""
+    lib = _require()
+    codes = np.ascontiguousarray(codes, np.int64)
+    u_starts = np.ascontiguousarray(u_starts, np.int64)
+    pool = np.ascontiguousarray(pool, np.uint8)
+    rv = None if row_valid is None else \
+        np.ascontiguousarray(row_valid, np.uint8)
+    out = np.empty(max(cap, 1), np.uint8)
+    got = lib.a1t_plain_byte_array(
+        codes.ctypes.data, len(codes), u_starts.ctypes.data,
+        pool.ctypes.data, None if rv is None else rv.ctypes.data,
+        out.ctypes.data, cap)
+    if got < 0:
+        raise ValueError(f"plain_byte_array: {cap} bytes are too few")
+    return out[:got].tobytes()

@@ -195,7 +195,29 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    build_info, runtime_info and total_allocated_bytes, each wall with
    GB/s and the peak device memory; the native library (native/src,
    built with g++) must have been used, and no pyarrow, flatbuffers or
-   zstandard module imported.
+   zstandard module imported;
+22. (run after 21) the file formats over phase 12's SF10 line items with
+   their date32 ship date (phase 16's table), one format at a time in a
+   fresh temporary directory, each file deleted before the next: CSV
+   (io.csv.write_csv; read_csv onto the card, equal to the table column
+   for column, floats bit for bit; open_csv_stream in 2^20-row batches
+   into Q1 and Q1 by year, bit-equal to the same queries over the
+   in-memory table); SF10's 15M orders as newline-delimited JSON made
+   with numpy, read with read_json onto the card (equal to the orders
+   batch) into Q3 through query() (the numpy oracle); Parquet
+   (write_parquet with 2^20-row row groups and snappy; read_parquet and
+   iter_parquet_batches onto the card, equal batch for batch; Q1 and Q1
+   by year bit-equal to the in-memory ones; a columns= projection and a
+   filters= read equal to the same projection and filter of the
+   in-memory table); ORC (write_orc, one stripe a batch; read_orc onto
+   the card, equal batch for batch; Q1 and Q1 by year bit-equal to the
+   in-memory ones); the orders' int64 columns through the
+   C++ IPC writer (io.ipc_cpp) read back with read_ipc onto the card.
+   Each leg prints its write wall, file size, read wall and GB/s, the
+   wall of the query it feeds with the K2 and K3 launches of one counted
+   run (above 0 where Q1 runs), the peak device memory and the card's
+   name and power limit; no pyarrow, zstandard or cryptography module
+   may be imported.
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -3129,6 +3151,253 @@ def phase_host_plane(pt, dev, counted, lt, ob, want):
     return launches
 
 
+def _orders_ndjson(ob) -> bytes:
+    """The orders batch as newline-delimited JSON, one object a row,
+    formatted column by column with numpy (the CSV writer's byte-matrix
+    helpers)."""
+    from arrow1_tpu_torch.io.csv import _int_field, _join, _lit, _pool_field
+
+    pool = [json.dumps(v).encode() for v in
+            ob["o_orderpriority"].dictionary.values.tolist()]
+    host = {n: ob[n].data.cpu().numpy() for n in ob.names}
+    out = []
+    for lo in range(0, ob.num_rows, 1 << 20):
+        k = {n: a[lo:lo + (1 << 20)] for n, a in host.items()}
+        n = len(k["o_orderkey"])
+        mat, mask = _join(_lit(b'{"o_orderkey": ', n),
+                          _int_field(k["o_orderkey"]),
+                          _lit(b', "o_custkey": ', n),
+                          _int_field(k["o_custkey"]),
+                          _lit(b', "o_orderpriority": ', n),
+                          _pool_field(pool, k["o_orderpriority"]
+                                      .astype(np.int64)),
+                          _lit(b"}\n", n))
+        out.append(mat[mask].tobytes())
+    return b"".join(out)
+
+
+def _secs(fn):
+    """(result, seconds) of one call, the card synchronised around it."""
+    out, ms = _wall_ms(fn)
+    return out, ms / 1e3
+
+
+def _slices_equal(batch, batches, label):
+    """One read batch against the table's batches, slice by slice."""
+    lo = 0
+    for i, b in enumerate(batches):
+        _same_batches([batch.slice(lo, b.num_rows)], [b], f"{label} {i}")
+        lo += b.num_rows
+    if lo != batch.num_rows:
+        raise AssertionError(f"{label}: {batch.num_rows} rows, not {lo}")
+
+
+def phase_file_formats(pt, dev, counted, lt, ob, want):
+    """Phase 22: the SF10 line items and orders through CSV, JSON, Parquet,
+    ORC and the C++ IPC writer and back onto the card into Q1, Q1 by year
+    and Q3. Returns the launch counts of its counted runs."""
+    from arrow1_tpu_torch import models
+    from arrow1_tpu_torch.io import csv as pcsv
+    from arrow1_tpu_torch.io import ipc as pio
+    from arrow1_tpu_torch.io import ipc_cpp, orc as porc
+    from arrow1_tpu_torch.io import json as pjson
+    from arrow1_tpu_torch.io import parquet as ppq
+    from arrow1_tpu_torch.table import concat_batches
+
+    card = _card_line()
+    launches = {kern.__name__: 0 for kern in counted}
+    t32 = _date32_lineitem(pt, lt)
+    rows = t32.batches[0].num_rows   # 2^20 (phase 12's batches)
+    year_aggs = [("l_quantity", "sum"), ("l_quantity", "count")]
+
+    def q1(t):
+        return models.q1_pricing_summary(t)
+
+    def q1_year(t):
+        return _q1_date32(pt, t, "l_year", year_aggs)
+
+    def counted_run(label, run):
+        """One warm-up, then one run with the counts set to 0; its result,
+        launches and the median wall of three more."""
+        run()
+        torch.cuda.synchronize()
+        for kern in counted:
+            kern.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {kern.__name__: kern.launches for kern in counted}
+        for kname, count in got.items():
+            launches[kname] += count
+        walls = [_wall_ms(run)[1] for _ in range(3)]
+        return out, got, statistics.median(walls)
+
+    def check_q1s(label, table):
+        """Q1 and Q1 by year over ``table`` bit-equal to the same queries
+        over the in-memory table and equal to the numpy oracles."""
+        for qname, run, oracle, kern in (
+                ("Q1", q1, "q1", "compact"),
+                ("Q1 by year", q1_year, "q1_years", "segment_sums")):
+            out, got, wall = counted_run(label, lambda: run(table))
+            if got[kern] <= 0:
+                raise AssertionError(f"{label} {qname} launched no "
+                                     f"{kern}")
+            mem = run(t32)
+            for name in mem.names:
+                _same_column_bits(out[name], mem[name],
+                                  f"{label} {qname} {name}")
+            _check_sf10(out, want[oracle], f"{label} {qname}")
+            print(f"file formats: {label} {qname} over "
+                  f"{table.num_rows} rows: bit-equal to {qname} over the "
+                  f"in-memory table and equal to the numpy oracle; wall "
+                  f"{wall:.3f} ms (median of 3); one run: K2 "
+                  f"{got['compact']}, K3 {got['segment_sums']} [{card}]",
+                  flush=True)
+
+    def leg_line(label, rows, size, write_s, read_s, extra=""):
+        print(f"file formats: {label}: {rows} rows, {size} bytes; write "
+              f"{write_s:.3f} s ({size / write_s / 1e9:.3f} GB/s, page "
+              f"cache, not flushed); read onto the card {read_s:.3f} s "
+              f"({size / read_s / 1e9:.3f} GB/s, warm page cache){extra}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]", flush=True)
+
+    table_bytes = sum(_datum_bytes(b) for b in t32.batches)
+    tmp = tempfile.mkdtemp(prefix="a1t-file-formats-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"file formats: {tmp} has {free} bytes free; the line items "
+              f"hold {table_bytes} bytes on the card", flush=True)
+        if free < 2 * table_bytes:
+            raise AssertionError(f"file formats: {free} bytes free in "
+                                 f"{tmp}, fewer than twice the table's "
+                                 f"{table_bytes}")
+
+        # CSV: write, read onto the card, then stream into Q1
+        path = os.path.join(tmp, "lineitem.csv")
+        torch.cuda.reset_peak_memory_stats()
+        _, write_s = _secs(lambda: pcsv.write_csv(t32, path))
+        size = os.path.getsize(path)
+        got, read_s = _secs(lambda: pcsv.read_csv(path))
+        if got.batches[0]["l_quantity"].device.type != \
+                torch.device(dev).type:
+            raise AssertionError("read_csv did not place its batch on "
+                                 "the card")
+        _slices_equal(got.batches[0], t32.batches, "CSV read")
+        del got
+        streamed, stream_s = _secs(lambda: pt.Table(list(
+            pcsv.open_csv_stream(path, batch_rows=rows))))
+        _same_batches(streamed.batches, t32.batches, "CSV stream")
+        leg_line("CSV", t32.num_rows, size, write_s, read_s,
+                 f"; open_csv_stream in 2^20-row batches {stream_s:.3f} s; "
+                 f"both equal to the table, floats bit for bit")
+        check_q1s("CSV", streamed)
+        del streamed
+        os.remove(path)
+
+        # JSON: SF10's orders as NDJSON made with numpy, into Q3
+        path = os.path.join(tmp, "orders.json")
+        torch.cuda.reset_peak_memory_stats()
+
+        def write_json():
+            with open(path, "wb") as f:
+                f.write(_orders_ndjson(ob))
+
+        _, write_s = _secs(write_json)
+        size = os.path.getsize(path)
+        got, read_s = _secs(lambda: pjson.read_json(path))
+        jb = got.batches[0]
+        _same_batches([jb], [ob], "JSON read")
+        out, got_l, wall = counted_run(
+            "JSON", lambda: models.q3_shipping_priority(lt, jb))
+        _check_sf10(out, want["q3"], "JSON Q3")
+        if got_l["compact"] <= 0:
+            raise AssertionError("JSON Q3 launched no K2")
+        leg_line("JSON (orders)", jb.num_rows, size, write_s, read_s,
+                 "; equal to the orders batch")
+        print(f"file formats: JSON Q3 through query() over the read orders:"
+              f" equal to the numpy oracle; wall {wall:.3f} ms (median of "
+              f"3); one run: K2 {got_l['compact']}, K3 "
+              f"{got_l['segment_sums']} [{card}]", flush=True)
+        del got, jb, out
+        os.remove(path)
+
+        # Parquet: 2^20-row row groups, snappy
+        path = os.path.join(tmp, "lineitem.parquet")
+        torch.cuda.reset_peak_memory_stats()
+        _, write_s = _secs(lambda: ppq.write_parquet(
+            t32, path, row_group_size=rows))
+        size = os.path.getsize(path)
+        got, read_s = _secs(lambda: ppq.read_parquet(path))
+        _slices_equal(got.batches[0], t32.batches, "Parquet read")
+        del got
+        it, iter_s = _secs(lambda: pt.Table(list(
+            ppq.iter_parquet_batches(path))))
+        _same_batches(it.batches, t32.batches, "Parquet row groups")
+        leg_line("Parquet", t32.num_rows, size, write_s, read_s,
+                 f"; iter_parquet_batches {iter_s:.3f} s, "
+                 f"{len(it.batches)} row groups; both equal to the table")
+        check_q1s("Parquet", it)
+        del it
+        cols = ["l_returnflag", "l_extendedprice"]
+        got, proj_s = _secs(lambda: ppq.read_parquet(path, columns=cols))
+        _slices_equal(got.batches[0], [b.select(cols) for b in t32.batches],
+                      "Parquet projection")
+        del got
+        filt = [("l_shipdate_days", "<=", 10000)]
+        k2 = next(k for k in counted if k.__name__ == "compact")
+        for kern in counted:
+            kern.launches = 0
+        got, filt_s = _secs(lambda: ppq.read_parquet(path, filters=filt))
+        filt_k2 = k2.launches
+        launches["compact"] += filt_k2
+        mem = concat_batches([pt.call_function("filter", [
+            b, pt.call_function("less_equal", [b["l_shipdate_days"],
+                                               pt.scalar(10000)])])
+            for b in t32.batches])
+        _same_batches(got.batches, [mem], "Parquet filters")
+        print(f"file formats: Parquet columns={cols} read "
+              f"{proj_s:.3f} s; filters={filt} read {filt_s:.3f} s, "
+              f"{got.num_rows} rows, K2 {filt_k2}; both equal to the same "
+              f"projection and filter of the in-memory table [{card}]",
+              flush=True)
+        del got, mem
+        os.remove(path)
+
+        # ORC: a stripe a batch
+        path = os.path.join(tmp, "lineitem.orc")
+        torch.cuda.reset_peak_memory_stats()
+        _, write_s = _secs(lambda: porc.write_orc(t32, path))
+        size = os.path.getsize(path)
+        got, read_s = _secs(lambda: porc.read_orc(path))
+        _same_batches(got.batches, t32.batches, "ORC read")
+        leg_line("ORC", t32.num_rows, size, write_s, read_s,
+                 f", {len(got.batches)} stripes; equal to the table")
+        check_q1s("ORC", got)
+        del got
+        os.remove(path)
+
+        # the C++ IPC writer: the orders' int64 columns
+        path = os.path.join(tmp, "orders.arrow")
+        names = ["o_orderkey", "o_custkey"]
+        host = [ob[n].data.cpu().numpy() for n in names]
+        _, write_s = _secs(lambda: ipc_cpp.write_ipc_cpp(path, names, host))
+        size = os.path.getsize(path)
+        got, read_s = _secs(lambda: pio.read_ipc(path))
+        _same_batches(got.batches, [ob.select(names)], "C++ IPC file")
+        leg_line("C++ IPC writer (orders' int64 columns)", ob.num_rows,
+                 size, write_s, read_s, "; read_ipc equal to the batch")
+        del got
+        os.remove(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = [m for m in ("pyarrow", "zstandard", "cryptography")
+              if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"the file formats imported {loaded}")
+    return launches
+
+
 def phase_config3(dev):
     """BASELINE config 3 through models.baseline_sort."""
     import arrow1_tpu_torch.profile_main_path as pm
@@ -3370,6 +3639,12 @@ def main() -> int:
                                      sf10_orders, sf10_want)
     print(f"host plane main path launches: {host_launches}", flush=True)
     for kname, count in host_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    format_launches = phase_file_formats(pt, dev, all_kernels, sf10_lineitem,
+                                         sf10_orders, sf10_want)
+    print(f"file formats main path launches: {format_launches}", flush=True)
+    for kname, count in format_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     del sf10_lineitem, sf10_orders
     torch.cuda.empty_cache()

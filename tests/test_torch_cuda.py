@@ -1364,6 +1364,90 @@ def test_ipc_file_read_onto_card_then_k2(cuda, tmp_path):
     assert torch.equal(_bits(got["f"].data), _bits(want["f"].data))
 
 
+def _format_batch(n=5000, seed=22):
+    """A seeded CPU batch of the file formats' common types: int64 with
+    nulls, float64 with NaN and -0.0, a string, a date32 and a bool."""
+    from arrow1_tpu_torch import dtypes as dt
+
+    rng = np.random.default_rng(seed)
+    f = np.round(rng.uniform(-1000, 1000, n), 2)
+    f[::89] = -0.0
+    return pt.RecordBatch((
+        pt.Column(torch.from_numpy(rng.integers(-1 << 40, 1 << 40, n)),
+                  dt.int64, validity=torch.from_numpy(rng.random(n) > 0.1)),
+        pt.Column(torch.from_numpy(f), dt.float64),
+        pt.Column(torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+                  dt.string, dictionary=pt.Dictionary(
+                      np.array(["AIR", "RAIL", "SHIP"], dtype=object))),
+        pt.Column(torch.from_numpy(rng.integers(8000, 11000, n)
+                                   .astype(np.int32)), dt.date32),
+        pt.Column(torch.from_numpy(rng.random(n) < 0.5), dt.bool_)),
+        ("i", "f", "s", "d", "b"))
+
+
+def _read_onto_card_then_k2(read):
+    """``read(device)`` onto the card by default: every column there, then
+    filter (K2 launched) equal to the same filter of the CPU read, which
+    runs K2's plain version; floats bit for bit."""
+    from arrow1_tpu_torch.compute_nested import move, same_nested
+    from arrow1_tpu_torch.table import concat_batches
+
+    outs = []
+    for dev in (None, "cpu"):
+        b = concat_batches(read(dev).batches)
+        assert all(c.device.type == ("cuda" if dev is None else "cpu")
+                   for c in b.columns)
+        mask = pt.call_function("greater", [b["f"], pt.scalar(0.0)])
+        before = compact.launches
+        outs.append(pt.call_function("filter", [b, mask]))
+        if dev is None:
+            assert compact.launches > before
+    got, want = outs
+    assert same_nested(move(got, "cpu"), want) is None
+    assert torch.equal(_bits(got["f"].data.cpu()), _bits(want["f"].data))
+
+
+def test_csv_file_read_onto_card_then_k2(cuda, tmp_path):
+    from arrow1_tpu_torch.io import csv as pcsv
+
+    path = str(tmp_path / "t.csv")
+    pcsv.write_csv(_format_batch(), path)
+    _read_onto_card_then_k2(lambda dev: pcsv.read_csv(path, device=dev))
+
+
+def test_json_file_read_onto_card_then_k2(cuda, tmp_path):
+    import json
+
+    from arrow1_tpu_torch.io import json as pjson
+
+    batch = _format_batch()
+    cols = {n: batch[n].to_pylist() for n in ("i", "f", "s")}
+    path = tmp_path / "t.json"
+    path.write_text("".join(json.dumps({n: cols[n][r] for n in cols}) + "\n"
+                            for r in range(batch.num_rows)))
+    _read_onto_card_then_k2(lambda dev: pjson.read_json(str(path),
+                                                        device=dev))
+
+
+def test_parquet_file_read_onto_card_then_k2(cuda, tmp_path):
+    from arrow1_tpu_torch.io import parquet as ppq
+
+    path = str(tmp_path / "t.parquet")
+    ppq.write_parquet(_format_batch(), path, row_group_size=2048)
+    _read_onto_card_then_k2(lambda dev: ppq.read_parquet(path, device=dev))
+    _read_onto_card_then_k2(lambda dev: pt.Table(list(
+        ppq.iter_parquet_batches(path, device=dev))))
+
+
+def test_orc_file_read_onto_card_then_k2(cuda, tmp_path):
+    from arrow1_tpu_torch.io import orc as porc
+
+    path = str(tmp_path / "t.orc")
+    b = _format_batch()
+    porc.write_orc(pt.Table([b.slice(0, 3000), b.slice(3000)]), path)
+    _read_onto_card_then_k2(lambda dev: porc.read_orc(path, device=dev))
+
+
 def test_runtime_reports_the_card(cuda, tmp_path):
     """runtime.profile writes a Chrome trace of a card run; the memory
     reports read the caching allocator."""

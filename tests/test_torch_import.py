@@ -27,7 +27,7 @@ PORT_FILES = sorted((ROOT / "arrow1_tpu_torch").rglob("*.py")) + \
 # on its own line, so one failing does not hide the other
 _BLOCKED = ("import sys, traceback\n"
             "for m in ('jax', 'pyarrow', 'flatbuffers', 'zstandard',"
-            " 'pandas'):\n"
+            " 'pandas', 'cryptography'):\n"
             "    sys.modules[m] = None\n"
             "def section(name, code):\n"
             "    try:\n"
@@ -119,13 +119,57 @@ HOST_PLANE_RUN = ("import sys, io, importlib\n"
                   "m.startswith('arrow1_tpu.') for m in sys.modules)\n")
 
 
+FILE_FORMATS_RUN = (
+    "import io, sys\n"
+    "import numpy as np\n"
+    "import arrow1_tpu_torch as pt\n"
+    "from arrow1_tpu_torch.io import (csv, json, orc, parquet,"
+    " parquet_native, ipc_cpp)\n"
+    "b = pt.record_batch({'x': np.arange(6), 'f': np.linspace(-1, 1, 6),"
+    " 's': np.array(['a', None, 'b,c', 'a', '', 'q'], dtype=object)},"
+    " device='cpu')\n"
+    "t = pt.Table([b.slice(0, 4), b.slice(4)])\n"
+    "want = b.to_pydict()\n"
+    "buf = io.BytesIO()\n"
+    "csv.write_csv(t, buf)\n"
+    "got = csv.read_csv(buf.getvalue(), device='cpu').combine_chunks()\n"
+    "assert got['x'].to_pylist() == want['x'], got\n"
+    "assert got['f'].to_pylist() == want['f'], got\n"
+    "assert got['s'].to_pylist() == ['a', '', 'b,c', 'a', '', 'q']\n"
+    "got = json.read_json(b'{\"x\": 1, \"l\": [1, 2]}\\n{\"x\": null}\\n',"
+    " device='cpu').combine_chunks()\n"
+    "assert got['x'].to_pylist() == [1, None]\n"
+    "assert got['l'].offsets.tolist() == [0, 2, 2]\n"
+    "assert got['l'].values.to_pylist() == [1, 2]\n"
+    "for codec in ('snappy', 'gzip', 'none'):\n"
+    "    buf = io.BytesIO()\n"
+    "    parquet.write_parquet(t, buf, compression=codec,"
+    " row_group_size=4)\n"
+    "    got = parquet.read_parquet(buf.getvalue(), device='cpu')\n"
+    "    assert got.combine_chunks().to_pydict() == want\n"
+    "buf = io.BytesIO()\n"
+    "orc.write_orc(t, buf)\n"
+    "assert orc.read_orc(buf.getvalue(), device='cpu').combine_chunks()"
+    ".to_pydict() == want\n"
+    "for blocked, codec in (('zstandard', 'zstd'),):\n"
+    "    try:\n"
+    "        parquet.write_parquet(b, io.BytesIO(), compression=codec)\n"
+    "    except Exception as e:\n"
+    "        assert blocked in str(e), e\n"
+    "    else:\n"
+    "        raise AssertionError('zstd without zstandard')\n"
+    "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
+    " for m in sys.modules)\n")
+
+
 @pytest.fixture(scope="module")
 def blocked_run():
     """stdout of one interpreter with jax, pyarrow, flatbuffers,
-    zstandard and pandas blocked that imports the port and drives its
-    host plane."""
+    zstandard, pandas and cryptography blocked that imports the port and
+    drives its host plane and its file formats."""
     code = (_BLOCKED + f"section('port', {PORT_IMPORTS!r})\n"
-            f"section('host plane', {HOST_PLANE_RUN!r})\n")
+            f"section('host plane', {HOST_PLANE_RUN!r})\n"
+            f"section('file formats', {FILE_FORMATS_RUN!r})\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
@@ -142,6 +186,30 @@ def test_host_plane_imports_and_runs_without_its_optional_packages(
     Feather V1 file, with jax, pyarrow, flatbuffers, zstandard and pandas
     blocked; nothing imports the JAX package."""
     assert "SECTION host plane OK" in blocked_run, blocked_run
+
+
+def test_file_formats_run_without_their_optional_packages(blocked_run):
+    """write_csv, read_csv, read_json, write_parquet, read_parquet,
+    write_orc and read_orc run natively with jax, pyarrow, zstandard and
+    cryptography blocked; ZSTD without zstandard names the package."""
+    assert "SECTION file formats OK" in blocked_run, blocked_run
+
+
+@pytest.mark.parametrize("read", ["csv", "json", "parquet", "orc",
+                                  "csv_stream", "parquet_batches"])
+def test_file_readers_default_to_cuda(monkeypatch, read):
+    from arrow1_tpu_torch.io import csv, json, orc, parquet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"csv": lambda: csv.read_csv(b"a\n1\n"),
+            "json": lambda: json.read_json(b'{"a": 1}\n'),
+            "parquet": lambda: parquet.read_parquet(b"PAR1"),
+            "orc": lambda: orc.read_orc(b"ORC"),
+            "csv_stream": lambda: next(csv.open_csv_stream(b"a\n1\n")),
+            "parquet_batches": lambda: next(
+                parquet.iter_parquet_batches(b"PAR1"))}[read]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 def _imports(path):
