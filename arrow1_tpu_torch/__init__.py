@@ -31,7 +31,12 @@ first use), ``runtime``, ``memory``, ``thread_pool``, ``cancel``,
 formats (``io``, ``ipc``, ``feather``) with their streams, codecs and
 readahead; CSV, JSON, Parquet and ORC (``io`` and the pyarrow-named
 facades ``csv``, ``json``, ``parquet`` and ``orc``), whose readers put
-their columns on CUDA unless the caller names the CPU.
+their columns on CUDA unless the caller names the CPU; datasets over
+local, S3 and WebHDFS file systems (``dataset``, ``fs``, ``fs_s3``,
+``fs_hdfs``); and the bridges: the C data interface (``cdata``,
+``cabi``), ``builders``, ``validate``, sparse and dense ``tensor``s,
+Gandiva's projector and filter (``gandiva``), the shared-memory store
+(``plasma``) and ``testing``.
 """
 
 __version__ = "0.1.0"
@@ -44,9 +49,9 @@ from .dtypes import (DataType, binary, bool_, date32, date64, decimal128,
                      decimal256, dense_union, duration, fixed_size_list,
                      float16, float32, float64, int8, int16, int32, int64,
                      large_binary, large_list, large_string, list_, map_,
-                     month_day_nano_interval, sparse_union, string, struct,
-                     time32, time64, timestamp, uint8, uint16, uint32,
-                     uint64)
+                     month_day_nano_interval, null, sparse_union, string,
+                     struct, time32, time64, timestamp, uint8, uint16,
+                     uint32, uint64)
 from .device import resolve_device
 from .exec.compiled import CompiledPipeline, PipelineBuilder
 from .expr import Expression, call, field, literal
@@ -76,6 +81,9 @@ from .thread_pool import cpu_thread_pool as _cpu_pool  # noqa: E402
 
 # pyarrow-named io facades (import arrow1_tpu_torch.parquet as pq, ...)
 from . import csv, json, orc, parquet  # noqa: E402,F401
+# datasets, file systems and bridges, as the reference's package imports
+# them (fs_s3, fs_hdfs, cabi, plasma, validate and testing on first use)
+from . import builders, cdata, dataset, fs, gandiva, tensor  # noqa: E402,F401
 
 
 def total_allocated_bytes(device=None) -> int:
@@ -164,9 +172,11 @@ def show_versions() -> None:
 
 show_info = show_versions
 
+NA = Scalar(0, null, is_valid=False)   # pyarrow.NA
+
 __all__ = ["acero", "dtypes", "Column", "Dictionary", "ListColumn",
            "StructColumn", "UnionColumn", "fixed_size_list_column", "Scalar",
-           "scalar", "DataType", "list_", "large_list", "fixed_size_list",
+           "scalar", "NA", "null", "DataType", "list_", "large_list", "fixed_size_list",
            "struct", "map_", "sparse_union", "dense_union",
            "binary", "bool_", "float16", "float32", "float64", "int8",
            "int16", "int32", "int64", "large_binary", "large_string",

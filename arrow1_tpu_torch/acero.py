@@ -5,8 +5,9 @@ Reference: the streaming exec engine's declarative layer
 (cpp/src/arrow/compute/exec/exec_plan.h Declaration and the options
 classes pyarrow surfaces as pyarrow.acero). Names and shapes match
 pyarrow.acero so that plans port verbatim; a Declaration runs on the
-device of its source's tensors. ``ScanNodeOptions`` needs ``dataset.py``
-and comes with the host-plane slice (ROADMAP Queue 1 item 12).
+device of its source's tensors. ``ScanNodeOptions`` holds a dataset and
+its scan options, as the reference's does; like the reference,
+``Declaration`` has no ``scan`` factory.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from .table import RecordBatch, Table, concat_batches
 __all__ = ["Declaration", "ExecNodeOptions", "TableSourceNodeOptions",
            "FilterNodeOptions", "ProjectNodeOptions",
            "AggregateNodeOptions", "HashJoinNodeOptions",
-           "OrderByNodeOptions", "AsofJoinNodeOptions"]
+           "OrderByNodeOptions", "AsofJoinNodeOptions", "ScanNodeOptions",
+           "ds"]
 
 
 class ExecNodeOptions:
@@ -188,3 +190,15 @@ class Declaration:
 
     def __repr__(self):
         return f"Declaration({self.factory_name!r})"
+
+
+# ---- pyarrow.acero's module tail ----
+from . import dataset as ds  # noqa: E402,F401
+
+
+class ScanNodeOptions(ExecNodeOptions):
+    """pyarrow.acero.ScanNodeOptions: a dataset and its scan options."""
+
+    def __init__(self, dataset, **kwargs):
+        self.dataset = dataset
+        self.scan_kwargs = kwargs

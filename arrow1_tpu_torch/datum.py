@@ -64,11 +64,12 @@ def scalar(value, type: Optional[dt.DataType] = None) -> Scalar:
     is its storage integer with its type, ``scalar(10471, date32)``: as in
     the JAX package, a Python date or datetime is not taken. A decimal
     scalar holds its unscaled integer; ``scalar(Decimal("0.05"))`` infers
-    pyarrow's type, decimal128(2, 2) (decimal256 past 38 digits)."""
+    pyarrow's type, decimal128(2, 2) (decimal256 past 38 digits).
+    ``scalar(None)`` is a null of the null type, as pyarrow's."""
     if isinstance(value, Scalar):
         return value
     if value is None:
-        return Scalar(0, type or dt.int64, is_valid=False)
+        return Scalar(0, type or dt.null, is_valid=False)
     if isinstance(value, (str, bytes)):
         pool = Dictionary(np.array([value], dtype=object))
         default = dt.string if isinstance(value, str) else dt.binary

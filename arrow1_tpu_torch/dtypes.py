@@ -1,8 +1,9 @@
 """Logical types and their torch physical storage (counterpart of
-arrow1_tpu/dtypes.py: the numeric, bool, string, temporal and interval
-types).
+arrow1_tpu/dtypes.py: the null, numeric, bool, string, temporal and
+interval types).
 
-Every column is one fixed-width tensor. Strings and binaries are
+Every column is one fixed-width tensor (a null-typed column: int8 zeros
+under an all-false validity). Strings and binaries are
 dictionary-encoded at ingest and travel as int32 codes; their values stay
 on the host. Temporal types are their storage integers with a unit tag
 (and a time zone for a timestamp): int32 for date32, time32 and
@@ -29,8 +30,8 @@ import torch
 
 from .errors import Invalid
 
-__all__ = ["DataType", "bool_", "int8", "int16", "int32", "int64", "uint8",
-           "uint16", "uint32", "uint64", "float16", "float32", "float64",
+__all__ = ["DataType", "null", "bool_", "int8", "int16", "int32", "int64",
+           "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
            "string", "large_string", "binary", "large_binary", "dictionary",
            "date32", "date64", "timestamp", "time32", "time64", "duration",
            "month_interval", "day_time_interval", "month_day_nano_interval",
@@ -93,7 +94,7 @@ class DataType:
                 self.kind not in _INTERVAL_KINDS and \
                 self.kind not in _DECIMAL_KINDS and \
                 self.kind not in _NESTED_KINDS and \
-                self.kind != "dictionary":
+                self.kind not in ("dictionary", "null"):
             raise TypeError(f"unknown type kind {self.kind!r}")
         if self.kind in _UNITS and self.unit not in _UNITS[self.kind]:
             raise ValueError(f"{self.kind}: bad unit {self.unit!r}")
@@ -101,6 +102,12 @@ class DataType:
                 1 <= self.precision <= _MAX_PRECISION[self.kind]:
             raise Invalid(f"Decimal precision out of range [1, "
                           f"{_MAX_PRECISION[self.kind]}]: {self.precision}")
+
+    @property
+    def is_null(self) -> bool:
+        """The null type: every slot null, stored as int8 zeros under an
+        all-false validity."""
+        return self.kind == "null"
 
     @property
     def is_boolean(self) -> bool:
@@ -170,6 +177,8 @@ class DataType:
             raise TypeError(f"{self!r} has no single physical dtype")
         if self.is_dictionary:
             return self.index_type.physical_dtype()
+        if self.is_null:
+            return torch.int8
         if self.is_temporal or self.is_interval or self.is_decimal:
             return torch.int32 if self.kind in _INT32_KINDS else torch.int64
         return _PHYS.get(self.kind, torch.int32)
@@ -180,6 +189,8 @@ class DataType:
             raise TypeError(f"{self!r} has no single physical dtype")
         if self.is_dictionary:
             return self.index_type.numpy_dtype()
+        if self.is_null:
+            return np.dtype(np.int8)
         if self.is_temporal or self.is_interval or self.is_decimal:
             return np.dtype(np.int32 if self.kind in _INT32_KINDS
                             else np.int64)
@@ -211,6 +222,7 @@ class DataType:
         return self.kind
 
 
+null = DataType("null")
 bool_ = DataType("bool")
 int8 = DataType("int8")
 int16 = DataType("int16")
@@ -326,6 +338,8 @@ def from_arrow(pa_type) -> DataType:
     """Map a pyarrow type (host ingest boundary; imports pyarrow lazily)."""
     import pyarrow as pa
 
+    if pa.types.is_null(pa_type):
+        return null
     if pa.types.is_boolean(pa_type):
         return bool_
     if pa.types.is_integer(pa_type) or pa.types.is_floating(pa_type):
@@ -379,6 +393,8 @@ def from_arrow(pa_type) -> DataType:
 def to_arrow(t: DataType):
     import pyarrow as pa
 
+    if t.is_null:
+        return pa.null()
     if t.is_dictionary:
         return pa.dictionary(to_arrow(t.index_type), to_arrow(t.value_type))
     if t.kind == "timestamp":

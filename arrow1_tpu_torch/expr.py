@@ -109,6 +109,10 @@ class Expression:
     def execute(self, batch: RecordBatch) -> Datum:
         raise NotImplementedError
 
+    def fields(self) -> set:
+        """The names of the columns the expression reads."""
+        raise NotImplementedError
+
     def bind(self, names: Sequence[str]) -> "Expression":
         """Check every field reference against the column ``names``."""
         raise NotImplementedError
@@ -120,6 +124,9 @@ class Literal(Expression):
 
     def execute(self, batch):
         return self.value
+
+    def fields(self):
+        return set()
 
     def bind(self, names):
         return self
@@ -134,6 +141,9 @@ class FieldRef(Expression):
 
     def execute(self, batch):
         return batch.column(self.name)
+
+    def fields(self):
+        return {self.name}
 
     def bind(self, names):
         if self.name not in names:
@@ -155,6 +165,9 @@ class Call(Expression):
         if isinstance(self.options, dict):
             return call_function(self.function, vals, **self.options)
         return call_function(self.function, vals, options=self.options)
+
+    def fields(self):
+        return set().union(*(a.fields() for a in self.args))
 
     def bind(self, names):
         return Call(self.function, tuple(a.bind(names) for a in self.args),

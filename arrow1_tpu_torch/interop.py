@@ -96,6 +96,10 @@ def column_from_arrow(arr, device=None) -> Column:
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()   # dictionary chunks: pools unified
     t = dt.from_arrow(arr.type)
+    if t.is_null:   # int8 zeros under an all-false validity
+        return Column(torch.zeros(len(arr), dtype=torch.int8, device=device),
+                      t, validity=torch.zeros(len(arr), dtype=torch.bool,
+                                              device=device))
     if t.is_nested:
         return _from_nested(arr, t, device)
     if pa.types.is_dictionary(arr.type):
@@ -317,6 +321,8 @@ def column_to_arrow(col: Column):
 
     if not isinstance(col, Column):
         return _nested_to_arrow(col)
+    if col.dtype.is_null:
+        return pa.nulls(col.length)
     mask = None
     if col.validity is not None:
         mask = ~col.validity.cpu().numpy()

@@ -11,8 +11,8 @@ reader's one staging copy (``ipc_native._stage``):
 - dates: date32 (int32 days), timestamps: int64 in their unit;
 - lists: ``ListColumn`` (int64 offsets and one element child), objects:
   ``StructColumn``;
-- a column with no value at all (the parsers' null type): an all-null
-  string column, since the port has no null type.
+- a column with no value at all (the parsers' null type): a null-typed
+  column, int8 zeros under an all-false validity.
 """
 
 from __future__ import annotations
@@ -171,11 +171,9 @@ def _flat_column(lib, h, c, nrows, valid, ty) -> Column:
     if ty == _BOOL:
         return Column(arr(lib.a1t_tbl_col_bool, np.uint8).astype(bool),
                       dt.bool_, validity=validity)
-    if ty == _NULL:
-        # no value in any row: an all-null string column
-        return Column(np.zeros(nrows, np.int32), dt.string,
-                      validity=np.zeros(nrows, bool),
-                      dictionary=Dictionary(np.asarray([""], object)))
+    if ty == _NULL:   # no value in any row
+        return Column(np.zeros(nrows, np.int8), dt.null,
+                      validity=np.zeros(nrows, bool))
     # strings, dictionary-encoded by the parser
     nuniq = lib.a1t_tbl_col_nuniq(h, c)
     nb = lib.a1t_tbl_col_nbytes(h, c)

@@ -208,6 +208,9 @@ def _root(buf) -> _T:
 def _build_type(b: Builder, t: dt.DataType) -> Tuple[int, int]:
     """Returns (union_type_index, table_offset)."""
     k = t.kind
+    if k == "null":
+        b.StartObject(0)
+        return TYPE_NULL, b.EndObject()
     if t.is_integer:
         width = np.dtype(t.numpy_dtype()).itemsize * 8
         b.StartObject(2)
@@ -502,6 +505,9 @@ def _flatten_array(col, nodes: List[Tuple[int, int]], bufs: List):
     if col.dtype.is_dictionary:
         raise UnsupportedLayout("ipc_native: a dictionary column nested "
                                 "in another column")
+    if col.dtype.is_null:   # a node and no buffer (Columnar.rst, Null)
+        nodes.append((col.length, col.length))
+        return
     cb, length, nulls = _column_buffers(col)
     nodes.append((length, nulls))
     bufs.extend(cb)
@@ -820,6 +826,8 @@ def _type_from_fb(ttype: int, tt: Optional[_T],
         fields = tuple((c.name, c.dtype) for c in children)
         mk = dt.sparse_union if mode == 0 else dt.dense_union
         return mk(fields, codes)
+    if ttype == TYPE_NULL:
+        return dt.null
     if ttype == TYPE_INT:
         width, signed = tt.i32(0), tt.bool_(1)
         if width not in (8, 16, 32, 64):
@@ -1147,6 +1155,9 @@ def _load_array(fi: _FieldInfo, cur: _BodyCursor, dictionaries):
         return UnionColumn(type_ids, children, t, offsets=offsets)
     # flat
     length, nulls = cur.node()
+    if k == "null":
+        return Column(np.zeros(length, np.int8), t,
+                      validity=np.zeros(length, bool))
     bufs = [cur.buf() for _ in range(_nbuffers(fi))]
     return _load_column(fi, length, nulls, bufs, dictionaries)
 
@@ -1379,6 +1390,8 @@ def _empty_host(t: dt.DataType):
         return Column(np.zeros(0, np.int64), t,
                       data2=np.zeros((0,) if t.limbs == 2 else (0, 3),
                                      np.int64))
+    if t.is_null:
+        return Column(np.zeros(0, np.int8), t, validity=np.zeros(0, bool))
     return Column(np.zeros(0, t.numpy_dtype()), t,
                   dictionary=Dictionary(np.zeros(0, object))
                   if t.is_binary else None)

@@ -8,6 +8,8 @@ Components (see native/src/*.cpp):
 - ragged dictionary gather (the IPC writer's string materialization)
   and Parquet's PLAIN byte-array encoder
 - Snappy block decoder          <- the codec Parquet and ORC pages use
+- the C data interface's release callbacks and a C consumer of it
+                                <- cpp/src/arrow/c/bridge.cc
 
 The library is built at first use with the C++ compiler (``$CXX``, else
 ``g++``): one compile of each ``native/src/*.cpp`` at once, then one link
@@ -146,6 +148,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         # parquet PLAIN byte-array encode (codes, u_starts, pool -> bytes)
         "a1t_plain_byte_array": (i64, [c_void_p, i64] + [c_void_p] * 4
                                  + [i64]),
+        # the C data interface's release callbacks and its C consumer
+        "a1t_cabi_release_schema": (None, [c_void_p]),
+        "a1t_cabi_release_array": (None, [c_void_p]),
+        "a1t_cabi_drain": (i64, [c_void_p, i64]),
+        "a1t_cabi_consume": (i64, [c_void_p, c_void_p, c_void_p]),
         # snappy block format
         "a1t_snappy_uncompressed_len": (i64, [c_char_p, i64]),
         "a1t_snappy_decompress": (i64, [c_char_p, i64, c_char_p, i64]),

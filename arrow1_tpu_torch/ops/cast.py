@@ -303,6 +303,8 @@ def _cast_exec(args, options: CastOptions, ctx):
     src = a.dtype
     if src == dst:
         return a
+    if src.is_null:
+        return _all_null(a, dst)
     if src.is_decimal:   # its limbs are read where they are needed
         x, n = None, (a.length if isinstance(a, Column) else None)
         validity = a.validity if isinstance(a, Column) else \
@@ -377,6 +379,23 @@ def _cast_exec(args, options: CastOptions, ctx):
                              dst, validity, n)
     return result_column(_cast_numeric(x, src, dst, options, validity),
                          dst, validity, n)
+
+
+def _all_null(a, dst: dt.DataType):
+    """A null-typed datum cast to ``dst``: every slot null, in ``dst``'s
+    layout (pyarrow casts the null type to any flat type)."""
+    if dst.is_nested or dst.is_dictionary or dst.is_interval:
+        raise Invalid(f"unsupported cast {a.dtype} -> {dst}")
+    pool = Dictionary(np.asarray([""], object)) if dst.is_binary else None
+    if not isinstance(a, Column):
+        return Scalar(0, dst, is_valid=False, dictionary=pool)
+    n, dev = a.length, a.device
+    data = torch.zeros(n, dtype=dst.physical_dtype(), device=dev)
+    data2 = None if not dst.is_decimal else torch.zeros(
+        (n,) if dst.limbs == 2 else (n, 3), dtype=torch.int64, device=dev)
+    return Column(data, dst, validity=torch.zeros(n, dtype=torch.bool,
+                                                  device=dev),
+                  dictionary=pool, data2=data2)
 
 
 def _decimal_column(a):

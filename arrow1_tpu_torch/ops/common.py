@@ -25,7 +25,11 @@ _INT_BITS = {"int8": 8, "int16": 16, "int32": 32, "int64": 64,
 
 
 def promote_numeric(types: Sequence[dt.DataType]) -> dt.DataType:
-    """Arrow-style common numeric type (DispatchBest / CommonNumeric)."""
+    """Arrow-style common numeric type (DispatchBest / CommonNumeric).
+    Null-typed operands (untyped null scalars) take the others' type."""
+    types = [t for t in types if not t.is_null] or [dt.null]
+    if types == [dt.null]:
+        return dt.null
     if any(not t.is_numeric and not t.is_boolean for t in types):
         raise Invalid(f"non-numeric types in promotion: {list(types)}")
     ts = [t for t in types if not t.is_boolean]

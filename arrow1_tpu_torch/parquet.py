@@ -10,7 +10,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from .errors import NotImplementedError_
 from .io.parquet import (  # noqa: F401
     decryption_properties, encryption_properties, iter_parquet_batches,
     read_parquet, write_parquet,
@@ -126,8 +125,8 @@ class ParquetWriter:
 
 
 def ParquetDataset(path_or_paths, **kwargs):
-    """pyarrow.parquet.ParquetDataset's shape: datasets are ROADMAP Queue 1
-    item 12d, not ported yet."""
-    raise NotImplementedError_(
-        "ParquetDataset needs datasets (ROADMAP Queue 1 item 12d), which "
-        "the port does not have yet; read the files with read_table")
+    """pyarrow.parquet.ParquetDataset's shape: ``dataset.dataset`` of
+    Parquet files (as modern pyarrow does)."""
+    from .dataset import dataset
+
+    return dataset(path_or_paths, format="parquet", **kwargs)

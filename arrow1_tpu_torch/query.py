@@ -10,11 +10,14 @@ sort and limit:
                    .order_by([("v_sum", "descending")])
                    .to_table()
 
-It runs on the device of the source's tensors. A join builds the right
-side's hash table once and probes it batch by batch (``ops.join.
-BuiltJoin``); the build side's rows of a right or full outer, right semi
-or right anti join come once, after the last batch. Datasets
-as sources come with the host-plane slice (ROADMAP Queue 1 item 12).
+It runs on the device of the source's tensors. A dataset source
+(``dataset.FileSystemDataset``) is scanned onto ``device`` (CUDA unless
+the caller names the CPU) with the filter pushed into the scan and into
+partition pruning, and a plain column selection into the readers, as the
+reference does. A join builds the right side's hash table once and
+probes it batch by batch (``ops.join.BuiltJoin``); the build side's rows
+of a right or full outer, right semi or right anti join come once, after
+the last batch.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ __all__ = ["Query", "query"]
 
 
 class Query:
-    def __init__(self, source):
+    def __init__(self, source, device=None):
         self._source = source
+        self._device = device
         self._filter: Optional[Expression] = None
         self._columns: Optional[List[str]] = None
         self._projection: Optional[List[Tuple[Expression, str]]] = None
@@ -74,21 +78,30 @@ class Query:
         return self
 
     # -- execution --
-    def _source_batches(self) -> List[RecordBatch]:
+    def _source_batches(self) -> Tuple[List[RecordBatch], bool]:
+        """The source's batches, and whether the filter already ran."""
+        from .dataset import FileSystemDataset, ScannerBuilder
+
         src = self._source
+        if isinstance(src, FileSystemDataset):
+            b = ScannerBuilder(src).device(self._device)
+            if self._filter is not None:
+                b = b.filter(self._filter)   # pushdown, pruning included
+            if self._columns and self._join is None and \
+                    self._group is None and self._projection is None:
+                b = b.project(self._columns)
+            return list(b.finish().scan_batches()), True
         if isinstance(src, Table):
-            return list(src.batches)
+            return list(src.batches), False
         if isinstance(src, RecordBatch):
-            return [src]
+            return [src], False
         raise Invalid(f"unsupported query source {type(src).__name__}: a "
-                      "Table or a RecordBatch; dataset sources are not "
-                      "ported yet, they come with the host-plane slice "
-                      "(dataset.py, ROADMAP Queue 1 item 12)")
+                      "Table, a RecordBatch or a dataset")
 
     def to_table(self) -> Table:
         from .registry import call_function
 
-        batches = self._source_batches()
+        batches, filtered = self._source_batches()
         if not batches:
             raise Invalid("query produced no batches")
         joiner = None
@@ -101,7 +114,7 @@ class Query:
             joiner = BuiltJoin(rb, keys, right_keys, join_type)
         joined: List[RecordBatch] = []
         for batch in batches:
-            if self._filter is not None:
+            if self._filter is not None and not filtered:
                 mask = self._filter.execute(batch)
                 batch = call_function("filter", [batch, mask])
             if joiner is not None:
@@ -148,6 +161,7 @@ class Query:
         return self.to_table().num_rows
 
 
-def query(source) -> Query:
-    """Start a query over a Table or a RecordBatch."""
-    return Query(source)
+def query(source, device=None) -> Query:
+    """Start a query over a Table, a RecordBatch or a dataset; a dataset
+    is scanned onto ``device`` (CUDA unless the caller names the CPU)."""
+    return Query(source, device)

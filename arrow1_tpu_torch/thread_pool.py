@@ -190,6 +190,9 @@ class ThreadPool:
                     fut.mark_error(e)
                 except Invalid:
                     pass
+            # an idle worker keeps no reference to the task it ran (its
+            # arguments may be batches on the card)
+            fn = args = fut = None
 
     def submit(self, fn: Callable, *args) -> Future:
         fut = Future()

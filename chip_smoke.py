@@ -217,7 +217,31 @@ probe_ops.cu and probe_ops.cpp, which holds the six probes), then:
    wall of the query it feeds with the K2 and K3 launches of one counted
    run (above 0 where Q1 runs), the peak device memory and the card's
    name and power limit; no pyarrow, zstandard or cryptography module
-   may be imported.
+   may be imported;
+23. writes the same line items, with l_shipyear = year(l_shipdate), as a
+   Hive-partitioned Parquet dataset (dataset.write_dataset, one file a
+   ship year) in a fresh temporary directory and reads it back:
+   dataset(root, partitioning="hive") must find one fragment a year and
+   count every row, and to_table onto the card must equal the source
+   year by year in source order, bit for bit (each batch valid under
+   validate_batch(full=True)); Q1 and Q1 by year through query(dataset)
+   equal the numpy oracles (K2 and K3 launched); Q6 with l_shipyear ==
+   1994 must keep one fragment and decode one file, and equal a numpy
+   oracle; a ScannerBuilder filter and projection, head(1000) and
+   ParquetDataset(root) equal the same operations on the in-memory
+   table. One year's files go through mock S3 (SigV4 checked on every
+   request) and WebHDFS servers on 127.0.0.1 with the native clients and
+   are read back as datasets over s3:// and webhdfs:// URIs, equal to the
+   local read. Then the bridges: SF10's 15M orders through the C stream
+   interface and back onto the card; builders of 10M int64, float64 and
+   string values against numpy; a tensor.Tensor of three float64 columns
+   of 10M rows through to_coo, to_csr, to_dense and matvec against the
+   same calls on the CPU; gandiva's Filter and Projector of Q6 over one
+   year's batches against query(); the orders' int64 columns through the
+   plasma store, read back here and in a child process. Each leg prints
+   its walls, GB/s where bytes move, the peak device memory and the
+   card's name and power limit; no pyarrow, jax, grpc, zstandard or
+   cryptography module may be imported.
 
 Every kernel wrapper of phases 3-10 also gets its host time per call
 (HOST_CALLS back-to-back calls, one synchronise); where the card cannot
@@ -3398,6 +3422,668 @@ def phase_file_formats(pt, dev, counted, lt, ob, want):
     return launches
 
 
+# ---- phase 23: datasets, file systems and bridges ----------------------
+
+S3_KEYS = ("AKIDSMOKE", "smoke-secret", "us-east-1")
+BRIDGE_ROWS = 10_000_000             # the builders' and the tensor's rows
+TENSOR_RTOL = 1e-12                  # matvec on the card against the CPU's
+PLASMA_BYTES = 1 << 30               # the store's capacity
+
+
+def _mock_s3():
+    """An in-process S3 (ThreadingHTTPServer on 127.0.0.1, any free port)
+    with enough of the REST dialect for the native client: HEAD, ranged
+    GET, PUT, DELETE, ListObjectsV2 with a delimiter and multipart upload;
+    every signed request's SigV4 signature is checked again here and a
+    mismatch is recorded in ``bad``. Returns (server, store, bad)."""
+    import hashlib
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from arrow1_tpu_torch.fs_s3 import sigv4_sign
+
+    store, uploads, bad = {}, {}, []
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def _split(self):
+            path, _, qs = self.path.partition("?")
+            bucket, _, key = urllib.parse.unquote(path).lstrip("/") \
+                .partition("/")
+            return bucket, key, dict(urllib.parse.parse_qsl(
+                qs, keep_blank_values=True))
+
+        def _signed(self, body: bytes) -> bool:
+            auth = self.headers.get("Authorization", "")
+            path, _, qs = self.path.partition("?")
+            want = sigv4_sign(
+                self.command, self.headers["Host"], path,
+                urllib.parse.parse_qsl(qs, keep_blank_values=True),
+                {k.lower(): v for k, v in self.headers.items()
+                 if k.lower() == "range"},
+                self.headers.get("x-amz-content-sha256",
+                                 hashlib.sha256(body).hexdigest()),
+                S3_KEYS[0], S3_KEYS[1], S3_KEYS[2], "s3",
+                self.headers.get("x-amz-date", ""))["Authorization"]
+            if auth != want:
+                bad.append((self.command, self.path))
+            return auth == want
+
+        def _reply(self, status, body=b"", headers=(), length=None):
+            self.send_response(status)
+            for k, v in headers:
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(
+                len(body) if length is None else length))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def _body(self):
+            n = int(self.headers.get("Content-Length", 0) or 0)
+            return self.rfile.read(n) if n else b""
+
+        def do_HEAD(self):
+            bucket, key, _ = self._split()
+            data = store.get((bucket, key))
+            self._reply(404) if data is None else \
+                self._reply(200, length=len(data))
+
+        def do_GET(self):
+            if not self._signed(b""):
+                return self._reply(403)
+            bucket, key, q = self._split()
+            if "list-type" in q:
+                prefix, delim = q.get("prefix", ""), q.get("delimiter", "")
+                files, dirs = [], []
+                for b, k in sorted(store):
+                    if b != bucket or not k.startswith(prefix):
+                        continue
+                    rest = k[len(prefix):]
+                    if delim and delim in rest:
+                        d = prefix + rest.split(delim)[0] + delim
+                        if d not in dirs:
+                            dirs.append(d)
+                    else:
+                        files.append(k)
+                xml = ["<ListBucketResult><IsTruncated>false</IsTruncated>"]
+                xml += [f"<Contents><Key>{k}</Key><Size>"
+                        f"{len(store[(bucket, k)])}</Size></Contents>"
+                        for k in files]
+                xml += [f"<CommonPrefixes><Prefix>{d}</Prefix>"
+                        f"</CommonPrefixes>" for d in dirs]
+                return self._reply(200, ("".join(xml) +
+                                         "</ListBucketResult>").encode())
+            data = store.get((bucket, key))
+            if data is None:
+                return self._reply(404)
+            rng = self.headers.get("Range")
+            if not rng:
+                return self._reply(200, data)
+            lo, _, hi = rng.split("=")[1].partition("-")
+            hi = min(int(hi), len(data) - 1) if hi else len(data) - 1
+            self._reply(206, data[int(lo):hi + 1])
+
+        def do_PUT(self):
+            body = self._body()
+            if not self._signed(body):
+                return self._reply(403)
+            bucket, key, q = self._split()
+            if "partNumber" in q:
+                uploads[q["uploadId"]][int(q["partNumber"])] = body
+            else:
+                store[(bucket, key)] = body
+            self._reply(200, headers=[("ETag", '"e"')])
+
+        def do_POST(self):
+            body = self._body()
+            if not self._signed(body):
+                return self._reply(403)
+            bucket, key, q = self._split()
+            if "uploads" in q:
+                uid = f"up{len(uploads)}"
+                uploads[uid] = {}
+                return self._reply(200, (
+                    f"<InitiateMultipartUploadResult><UploadId>{uid}"
+                    f"</UploadId></InitiateMultipartUploadResult>").encode())
+            parts = uploads.pop(q["uploadId"])
+            store[(bucket, key)] = b"".join(parts[i] for i in sorted(parts))
+            self._reply(200, b"<CompleteMultipartUploadResult/>")
+
+        def do_DELETE(self):
+            if not self._signed(b""):
+                return self._reply(403)
+            bucket, key, _ = self._split()
+            store.pop((bucket, key), None)
+            self._reply(204)
+
+    return ThreadingHTTPServer(("127.0.0.1", 0), Handler), store, bad
+
+
+def _mock_webhdfs():
+    """An in-process WebHDFS namenode and datanode (WebHDFS v1 REST:
+    GETFILESTATUS, LISTSTATUS with directories, OPEN with offset/length,
+    CREATE through a 307 to the datanode, MKDIRS, DELETE). Returns
+    (server, files)."""
+    import json as _json
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    files = {}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _parse(self):
+            u = urllib.parse.urlsplit(self.path)
+            return (urllib.parse.unquote(u.path[len("/webhdfs/v1"):]),
+                    dict(urllib.parse.parse_qsl(u.query)))
+
+        def _send(self, status, body=b""):
+            self.send_response(status)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, obj, status=200):
+            self._send(status, _json.dumps(obj).encode())
+
+        def do_GET(self):
+            path, q = self._parse()
+            base = path.rstrip("/")
+            under = [k for k in files if k.startswith(base + "/")]
+            if q["op"] == "GETFILESTATUS":
+                if path in files:
+                    return self._json({"FileStatus": {
+                        "type": "FILE", "length": len(files[path])}})
+                if under:
+                    return self._json({"FileStatus": {
+                        "type": "DIRECTORY", "length": 0}})
+                return self._json({"RemoteException": {
+                    "message": f"not found: {path}"}}, 404)
+            if q["op"] == "LISTSTATUS":
+                kids = {}
+                for k in under:
+                    head, sep, _ = k[len(base) + 1:].partition("/")
+                    kids[head] = ("DIRECTORY", 0) if sep else \
+                        ("FILE", len(files[k]))
+                return self._json({"FileStatuses": {"FileStatus": [
+                    {"pathSuffix": n, "type": t, "length": ln}
+                    for n, (t, ln) in sorted(kids.items())]}})
+            if q["op"] == "OPEN" and path in files:
+                data = files[path]
+                off = int(q.get("offset", 0))
+                return self._send(200, data[off:off + int(
+                    q.get("length", len(data) - off))])
+            self._json({"RemoteException": {"message": path}}, 404)
+
+        def do_PUT(self):
+            path, q = self._parse()
+            if q["op"] == "CREATE" and "datanode" not in q:
+                self.send_response(307)
+                self.send_header("Location", f"http://127.0.0.1:"
+                                 f"{self.server.server_port}{self.path}"
+                                 f"&datanode=1")
+                self.send_header("Content-Length", "0")
+                return self.end_headers()
+            body = self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0) or 0))
+            if q["op"] == "CREATE":
+                files[path] = body
+            self._json({"boolean": True}, 201 if q["op"] == "CREATE"
+                       else 200)
+
+        def do_DELETE(self):
+            path, _ = self._parse()
+            for k in [k for k in files if k == path
+                      or k.startswith(path.rstrip("/") + "/")]:
+                del files[k]
+            self._json({"boolean": True})
+
+    return ThreadingHTTPServer(("127.0.0.1", 0), Handler), files
+
+
+def _serving(server):
+    """Serve ``server`` on a daemon thread; returns the thread."""
+    import threading
+
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return t
+
+
+def _stop(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+
+
+def _by_year(pt, src, years):
+    """The source's rows year by year (ascending), in source order within
+    a year, as one batch: the order a Hive dataset of it scans in."""
+    from arrow1_tpu_torch.table import concat_batches
+
+    years_rows = []
+    for y in years:   # a year at a time: the filter's outputs are freed
+        parts = [pt.call_function("filter", [b, pt.call_function(
+            "equal", [b["l_shipyear"], pt.scalar(int(y))])])
+            for b in src.batches]
+        years_rows.append(concat_batches([p for p in parts if p.num_rows]))
+        del parts
+    return concat_batches(years_rows)
+
+
+def _q6_year_oracle(src, year):
+    """Numpy Q6 of one ship year: revenue by return flag, from host copies
+    of each batch (flag codes decoded through each batch's own pool)."""
+    sums = {}
+    for b in src.batches:
+        h = {n: b[n].data.cpu().numpy() for n in (
+            "l_discount", "l_quantity", "l_extendedprice", "l_returnflag",
+            "l_shipyear")}
+        keep = (h["l_discount"] >= 0.02) & (h["l_discount"] <= 0.09) & \
+            (h["l_quantity"] < 24) & (h["l_shipyear"] == year)
+        pool = b["l_returnflag"].dictionary.values
+        part = np.bincount(h["l_returnflag"][keep],
+                           weights=h["l_extendedprice"][keep],
+                           minlength=len(pool))
+        for flag, s in zip(pool.tolist(), part.tolist()):
+            sums[flag] = sums.get(flag, 0.0) + s
+    return sums
+
+
+def _q6_year(pt, source, year):
+    return (pt.query(source)
+            .filter((pt.field("l_discount") >= 0.02)
+                    & (pt.field("l_discount") <= 0.09)
+                    & (pt.field("l_quantity") < 24)
+                    & (pt.field("l_shipyear") == year))
+            .group_by(["l_returnflag"], [("l_extendedprice", "sum")])
+            .to_batch())
+
+
+def _plasma_child(name: str, oid: bytes, echo: bytes, dev) -> str:
+    """The child's program: open the store, read the table onto ``dev``
+    and store it again under ``echo``."""
+    dev = torch.device(dev)
+    return ("import sys; sys.path.insert(0, '.')\n"
+            "from arrow1_tpu_torch import plasma\n"
+            f"st = plasma.connect({name!r}, create=False)\n"
+            f"t = st.get(plasma.ObjectID({oid!r}), device={str(dev)!r})\n"
+            f"assert t.batches[0].columns[0].device.type == {dev.type!r}\n"
+            f"st.put(t, plasma.ObjectID({echo!r}))\n"
+            "st.close()\n")
+
+
+def phase_datasets(pt, dev, counted, lt, ob, want):
+    """Phase 23: the SF10 line items as a year-partitioned Parquet dataset,
+    read back onto the card whole, into Q1 and Q1 by year through
+    query(dataset) and into a pruned Q6; the dataset's scanner, head and
+    ParquetDataset; one partition through mock S3 and WebHDFS servers;
+    then the bridges: the C stream interface, the builders, validate,
+    tensor, gandiva and the plasma store. Returns the launch counts of its
+    counted runs."""
+    from arrow1_tpu_torch import (builders, cdata, dataset as ds, gandiva,
+                                  models, plasma, tensor, validate)
+    from arrow1_tpu_torch import dtypes as dt
+    from arrow1_tpu_torch import parquet as ppq
+    from arrow1_tpu_torch.fs import LocalFileSystem, copy_files
+    from arrow1_tpu_torch.fs_s3 import NativeS3FileSystem
+    from arrow1_tpu_torch.table import concat_batches
+
+    card = _card_line()
+    launches = {kern.__name__: 0 for kern in counted}
+    t32 = _date32_lineitem(pt, lt)
+    src = pt.Table([b.set_column("l_shipyear", pt.call_function(
+        "year", [b["l_shipdate"]])) for b in t32.batches])
+    days = np.concatenate([b["l_shipdate_days"].data.cpu().numpy()
+                           for b in lt.batches])
+    years = np.unique(days.astype("datetime64[D]").astype("datetime64[Y]")
+                      .astype(np.int64) + 1970)
+    del days
+    n_rows = src.num_rows
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def counted_run(run):
+        """One run with the counts set to 0: its result, launches, wall."""
+        torch.cuda.synchronize()
+        for kern in counted:
+            kern.launches = 0
+        out, ms = _wall_ms(run)
+        got = {kern.__name__: kern.launches for kern in counted}
+        for kname, count in got.items():
+            launches[kname] += count
+        return out, got, ms
+
+    tmp = tempfile.mkdtemp(prefix="a1t-datasets-")
+    root = os.path.join(tmp, "lineitem")
+    try:
+        table_bytes = sum(_datum_bytes(b) for b in src.batches)
+        free = shutil.disk_usage(tmp).free
+        print(f"datasets: {tmp} has {free} bytes free; the line items hold "
+              f"{table_bytes} bytes on the card", flush=True)
+        if free < 2 * table_bytes:
+            raise AssertionError(f"datasets: {free} bytes free, fewer than "
+                                 f"twice the table's {table_bytes}")
+
+        # write the dataset, find it, count it, read it back whole
+        torch.cuda.reset_peak_memory_stats()
+        _, write_s = _secs(lambda: ds.write_dataset(
+            src, root, partitioning_keys=["l_shipyear"], format="parquet"))
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        D = ds.dataset(root, partitioning="hive")
+        if len(D.fragments) != len(years):
+            raise AssertionError(f"datasets: {len(D.fragments)} fragments "
+                                 f"for {len(years)} ship years")
+        count, count_s = _secs(D.count_rows)
+        if count != n_rows:
+            raise AssertionError(f"datasets: count_rows {count}, not "
+                                 f"{n_rows}")
+        got, read_s = _secs(D.to_table)
+        if got.batches[0]["l_orderkey"].device.type != \
+                torch.device(dev).type:
+            raise AssertionError("datasets: to_table left the card")
+        for b in got.batches:
+            validate.validate_batch(b, full=True)
+        want_rows = _by_year(pt, src, years)
+        whole = concat_batches(got.batches)
+        _same_batches([whole], [want_rows], "dataset to_table")
+        print(f"datasets: write_dataset of {n_rows} rows by l_shipyear: "
+              f"{len(D.fragments)} Parquet files (years {years[0]}-"
+              f"{years[-1]}), {size} bytes in {write_s:.3f} s "
+              f"({size / write_s / 1e9:.3f} GB/s, page cache, not flushed);"
+              f" count_rows {count_s:.3f} s; to_table onto the card "
+              f"{read_s:.3f} s ({size / read_s / 1e9:.3f} GB/s, warm page "
+              f"cache), {len(got.batches)} batches, each valid "
+              f"(validate_batch full), equal bit for bit to the source "
+              f"year by year; peak device memory {peak_gib():.2f} GiB "
+              f"[{card}]", flush=True)
+        del got, whole
+
+        # query(dataset): Q1, Q1 by year, and Q6 pruned to one year
+        torch.cuda.reset_peak_memory_stats()
+        year_aggs = [("l_quantity", "sum"), ("l_quantity", "count")]
+        for qname, run, oracle, kern in (
+                ("Q1", lambda: models.q1_pricing_summary(D), "q1",
+                 "compact"),
+                ("Q1 by year", lambda: _q1_date32(pt, D, "l_year",
+                                                  year_aggs), "q1_years",
+                 "segment_sums")):
+            out, got_l, ms = counted_run(run)
+            _check_sf10(out, want[oracle], f"dataset {qname}")
+            if got_l[kern] <= 0:
+                raise AssertionError(f"dataset {qname} launched no {kern}")
+            print(f"datasets: {qname} through query(dataset): equal to the "
+                  f"numpy oracle; wall {ms:.3f} ms (the scan included); K2 "
+                  f"{got_l['compact']}, K3 {got_l['segment_sums']}; peak "
+                  f"device memory {peak_gib():.2f} GiB [{card}]",
+                  flush=True)
+        q6_year = 1994 if 1994 in years else int(years[len(years) // 2])
+        pred = pt.field("l_shipyear") == q6_year
+        kept = D.get_fragments(pred)
+        decoded = []
+        real_scan = ds.Fragment.scan_batches
+
+        def counting_scan(frag, *args, **kwargs):
+            decoded.append(frag.path)
+            return real_scan(frag, *args, **kwargs)
+
+        ds.Fragment.scan_batches = counting_scan
+        try:
+            out, got_l, ms = counted_run(lambda: _q6_year(pt, D, q6_year))
+        finally:
+            ds.Fragment.scan_batches = real_scan
+        if len(kept) != 1 or len(decoded) != 1:
+            raise AssertionError(f"dataset Q6: {len(kept)} fragments kept, "
+                                 f"{len(decoded)} decoded")
+        oracle = _q6_year_oracle(src, q6_year)
+        flags = out["l_returnflag"].to_numpy().tolist()
+        sums = out["l_extendedprice_sum"].to_numpy()
+        if sorted(flags) != sorted(oracle) or not np.allclose(
+                sums, [oracle[f] for f in flags], rtol=SF10_RTOL, atol=0):
+            raise AssertionError(f"dataset Q6: {flags} {sums} against "
+                                 f"{oracle}")
+        print(f"datasets: Q6 with l_shipyear == {q6_year}: pruning kept 1 "
+              f"fragment of {len(D.fragments)} and 1 file was decoded; "
+              f"equal to the numpy oracle; wall {ms:.3f} ms; K2 "
+              f"{got_l['compact']} [{card}]", flush=True)
+
+        # the scanner's projection and filter, head, ParquetDataset
+        rev = pt.field("l_extendedprice") * pt.field("l_discount")
+        cheap = pt.field("l_quantity") < 10
+        sc, scan_s = _secs(lambda: ds.ScannerBuilder(D).filter(cheap)
+                           .project([rev, pt.field("l_shipyear")],
+                                    ["rev", "l_shipyear"]).finish()
+                           .to_table())
+        mem = (pt.query(want_rows).filter(cheap)
+               .project([rev, pt.field("l_shipyear")],
+                        ["rev", "l_shipyear"]).to_batch())
+        _same_batches([concat_batches(sc.batches)], [mem],
+                      "dataset projection")
+        head = D.head(1000)
+        _same_batches([concat_batches(head.batches)],
+                      [want_rows.slice(0, 1000)], "dataset head")
+        pq_ds = ppq.ParquetDataset(root, partitioning="hive")
+        keys, pq_s = _secs(lambda: pq_ds.to_table(
+            columns=["l_orderkey", "l_shipyear"]))
+        _same_batches([concat_batches(keys.batches)],
+                      [want_rows.select(["l_orderkey", "l_shipyear"])],
+                      "ParquetDataset")
+        print(f"datasets: ScannerBuilder filter + projection {scan_s:.3f} s"
+              f" ({sc.num_rows} rows), head(1000) and ParquetDataset "
+              f"columns=[l_orderkey, l_shipyear] {pq_s:.3f} s: each equal "
+              f"to the same operations on the in-memory table [{card}]",
+              flush=True)
+        del sc, mem, head, keys
+
+        # one partition through the S3 and WebHDFS clients and back
+        first = 1992 if 1992 in years else int(years[0])
+        part_dir = os.path.join(root, f"l_shipyear={first}")
+        part_bytes = sum(os.path.getsize(os.path.join(part_dir, f))
+                         for f in os.listdir(part_dir))
+        local = concat_batches(D.to_table(
+            filter=pt.field("l_shipyear") == first).batches)
+        s3_server, _, bad = _mock_s3()
+        hd_server, _ = _mock_webhdfs()
+        threads = [_serving(s3_server), _serving(hd_server)]
+        try:
+            s3fs = NativeS3FileSystem(
+                access_key=S3_KEYS[0], secret_key=S3_KEYS[1],
+                region=S3_KEYS[2], scheme="http", request_timeout=60,
+                endpoint_override=f"127.0.0.1:{s3_server.server_port}")
+            _, s3_put = _secs(lambda: copy_files(
+                part_dir, f"bkt/lineitem/l_shipyear={first}",
+                LocalFileSystem(), s3fs))
+            uri = (f"s3://{S3_KEYS[0]}:{S3_KEYS[1]}@bkt/lineitem?"
+                   f"endpoint_override=127.0.0.1:{s3_server.server_port}"
+                   f"&scheme=http&region={S3_KEYS[2]}")
+            s3_got, s3_read = _secs(lambda: ds.dataset(
+                uri, partitioning="hive").to_table())
+            _same_batches([concat_batches(s3_got.batches)], [local],
+                          "S3 dataset")
+            if bad:
+                raise AssertionError(f"S3: signatures failed: {bad[:3]}")
+            hd_uri = (f"webhdfs://smoke@127.0.0.1:{hd_server.server_port}"
+                      f"/warehouse/lineitem")
+            from arrow1_tpu_torch.fs import filesystem_from_uri
+
+            hdfs, _ = filesystem_from_uri(hd_uri)
+            _, hd_put = _secs(lambda: copy_files(
+                part_dir, f"/warehouse/lineitem/l_shipyear={first}",
+                LocalFileSystem(), hdfs))
+            hd_got, hd_read = _secs(lambda: ds.dataset(
+                hd_uri, partitioning="hive").to_table())
+            _same_batches([concat_batches(hd_got.batches)], [local],
+                          "WebHDFS dataset")
+        finally:
+            for server, t in zip((s3_server, hd_server), threads):
+                _stop(server, t)
+        print(f"datasets: the {first} partition ({part_bytes} bytes, "
+              f"{local.num_rows} rows) through mock servers on 127.0.0.1: "
+              f"S3 (SigV4 checked on every request) upload {s3_put:.3f} s "
+              f"({part_bytes / s3_put / 1e9:.3f} GB/s), dataset read onto "
+              f"the card {s3_read:.3f} s ({part_bytes / s3_read / 1e9:.3f} "
+              f"GB/s); WebHDFS upload {hd_put:.3f} s "
+              f"({part_bytes / hd_put / 1e9:.3f} GB/s), dataset read "
+              f"{hd_read:.3f} s ({part_bytes / hd_read / 1e9:.3f} GB/s); "
+              f"each equal to the local read of that fragment [{card}]",
+              flush=True)
+        del s3_got, hd_got, local
+
+        # bridges: the C stream interface over the orders
+        torch.cuda.reset_peak_memory_stats()
+        back, c_s = _secs(lambda: cdata.import_batch(cdata.export_batch(ob)))
+        _same_batches([back], [ob], "C stream")
+        print(f"bridges: the {ob.num_rows} orders exported as an "
+              f"arrow_array_stream capsule and imported onto the card in "
+              f"{c_s:.3f} s, equal to the batch; peak device memory "
+              f"{peak_gib():.2f} GiB [{card}]", flush=True)
+        del back
+
+        # builders: 10M int64, float64 and string values against numpy
+        torch.cuda.reset_peak_memory_stats()
+        rng = np.random.default_rng(23)
+        ints = rng.integers(-(1 << 62), 1 << 62, BRIDGE_ROWS)
+        floats = rng.standard_normal(BRIDGE_ROWS)
+        pool = np.array([f"Customer#{i:09d}" for i in range(150_000)],
+                        object)
+        strs = pool[rng.integers(0, len(pool), BRIDGE_ROWS)]
+        t0 = time.perf_counter()
+        ci = builders.Int64Builder().append_values(ints).finish()
+        cf = builders.Float64Builder().append_values(floats).finish()
+        cs = builders.StringBuilder().append_values(strs).finish()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not (np.array_equal(ci.data.cpu().numpy(), ints) and
+                np.array_equal(cf.data.cpu().numpy().view(np.int64),
+                               floats.view(np.int64)) and
+                np.array_equal(cs.dictionary.values[
+                    cs.data.cpu().numpy()], strs) and
+                ci.device.type == cf.device.type == cs.device.type ==
+                torch.device(dev).type):
+            raise AssertionError("builders differ from numpy")
+        print(f"bridges: builders of {BRIDGE_ROWS} int64, float64 and "
+              f"string values finished onto the card in {build_s:.3f} s, "
+              f"equal to numpy (floats bit for bit); peak device memory "
+              f"{peak_gib():.2f} GiB [{card}]", flush=True)
+        del ci, cf, cs, ints, floats, strs
+
+        # tensor: three float64 columns of 10M rows, on the card and CPU
+        torch.cuda.reset_peak_memory_stats()
+        lead, got_rows = [], 0
+        for b in src.batches:
+            if got_rows >= BRIDGE_ROWS:
+                break
+            lead.append(b)
+            got_rows += b.num_rows
+        b0 = concat_batches(lead).slice(0, BRIDGE_ROWS)
+        del lead
+        dense = torch.stack([b0["l_extendedprice"].data,
+                             b0["l_discount"].data,
+                             b0["l_quantity"].data.to(torch.float64)], 1)
+        del b0
+        x = torch.tensor([1.0, -2.5, 0.125], dtype=torch.float64)
+
+        def tensor_calls(t):
+            coo = tensor.Tensor(t).to_coo()
+            csr = coo.to_csr()
+            return coo, csr, csr.to_dense().data, \
+                csr.matvec(x.to(t.device))
+
+        (coo, csr, back, y), t_s = _secs(lambda: tensor_calls(dense))
+        coo_c, csr_c, back_c, y_c = tensor_calls(dense.cpu())
+        if not (torch.equal(coo.coords.cpu(), coo_c.coords) and
+                torch.equal(csr.indptr.cpu(), csr_c.indptr) and
+                torch.equal(csr.indices.cpu(), csr_c.indices) and
+                torch.equal(back, dense) and torch.equal(back_c,
+                                                         dense.cpu())):
+            raise AssertionError("tensor: COO/CSR/dense differ from the "
+                                 "CPU's")
+        rel = float(((y.cpu() - y_c).abs() / y_c.abs().clamp_min(1e-300))
+                    .max())
+        if rel > TENSOR_RTOL:
+            raise AssertionError(f"tensor: matvec off by {rel}")
+        print(f"bridges: tensor of {dense.shape[0]}x3 float64: to_coo "
+              f"({coo.non_zero_length} nonzeros), to_csr, to_dense and "
+              f"matvec on the card {t_s:.3f} s; COO, CSR and dense equal "
+              f"to the CPU's, matvec within {rel:.3g} relative "
+              f"(bound {TENSOR_RTOL}); peak device memory "
+              f"{peak_gib():.2f} GiB [{card}]", flush=True)
+        del dense, coo, csr, back, y, coo_c, csr_c, back_c, y_c
+
+        # gandiva: Q6's predicate and revenue over one year's batches
+        q6_pred = (pt.field("l_discount") >= 0.02) & \
+            (pt.field("l_discount") <= 0.09) & (pt.field("l_quantity") < 24)
+        year_batches = D.to_table(filter=pred).batches
+        filt = gandiva.make_filter(year_batches[0], q6_pred)
+        proj = gandiva.make_projector(year_batches[0], [(rev, "revenue")])
+        t0 = time.perf_counter()
+        outs = [proj.evaluate(b, filt.evaluate(b)) for b in year_batches]
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        mem = [pt.query(b).filter(q6_pred).project([rev], ["revenue"])
+               .to_batch() for b in year_batches]
+        _same_batches(outs, mem, "gandiva")
+        print(f"bridges: gandiva Filter (Q6's predicate) and Projector "
+              f"(revenue) over {len(year_batches)} batches of "
+              f"{q6_year} in {g_s:.3f} s, equal to query()'s filter and "
+              f"projection [{card}]", flush=True)
+        del year_batches, outs, mem
+
+        # plasma: the orders' int64 columns, here and in a child process
+        name = f"/a1t-smoke-{os.getpid()}"
+        ints_batch = ob.select(["o_orderkey", "o_custkey"])
+        shm_free = shutil.disk_usage("/dev/shm").free
+        if shm_free < 3 * _datum_bytes(ints_batch):
+            raise AssertionError(f"plasma: /dev/shm has {shm_free} bytes "
+                                 f"free, too few for two copies of "
+                                 f"{_datum_bytes(ints_batch)}")
+        store = plasma.PlasmaStore(name, capacity=PLASMA_BYTES,
+                                   max_objects=8)
+        try:
+            oid, echo = plasma.ObjectID.of("orders"), \
+                plasma.ObjectID.of("echo")
+            _, put_s = _secs(lambda: store.put(ints_batch, oid))
+            used = store.bytes_used
+            mine, get_s = _secs(lambda: store.get(oid))
+            _same_batches(mine.batches, [ints_batch], "plasma get")
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-c", _plasma_child(
+                    name, oid.binary, echo.binary, dev)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            child_s = time.perf_counter() - t0
+            if child.returncode:
+                raise AssertionError(f"plasma child failed: "
+                                     f"{child.stderr[-2000:]}")
+            _same_batches(store.get(echo).batches, [ints_batch],
+                          "plasma child")
+        finally:
+            store.destroy()
+        print(f"bridges: plasma put of the orders' int64 columns "
+              f"({used} bytes in the store) {put_s:.3f} s, get onto the "
+              f"card {get_s:.3f} s; a child process read them onto its "
+              f"card and stored them again in {child_s:.3f} s (its start "
+              f"included); both copies equal to the batch [{card}]",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = [m for m in ("pyarrow", "jax", "grpc", "zstandard",
+                          "cryptography") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"the datasets phase imported {loaded}")
+    return launches
+
+
 def phase_config3(dev):
     """BASELINE config 3 through models.baseline_sort."""
     import arrow1_tpu_torch.profile_main_path as pm
@@ -3645,6 +4331,12 @@ def main() -> int:
                                          sf10_orders, sf10_want)
     print(f"file formats main path launches: {format_launches}", flush=True)
     for kname, count in format_launches.items():
+        launches[kname] = launches.get(kname, 0) + count
+    torch.cuda.empty_cache()
+    dataset_launches = phase_datasets(pt, dev, all_kernels, sf10_lineitem,
+                                      sf10_orders, sf10_want)
+    print(f"datasets main path launches: {dataset_launches}", flush=True)
+    for kname, count in dataset_launches.items():
         launches[kname] = launches.get(kname, 0) + count
     del sf10_lineitem, sf10_orders
     torch.cuda.empty_cache()

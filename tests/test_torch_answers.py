@@ -8,7 +8,7 @@ arguments, the answers as a dict) and takes them in its module fixture
 with ``answers_of(__name__)``; a file whose answers take long may split
 them into parts (``reference_answers(part)``, listed as ``module:part``),
 which run in workers of their own. The first fixture that asks (the first
-port test file's, ``test_torch_compaction``, calls ``start`` itself)
+port test file's, ``test_torch_bridges``, calls ``start`` itself)
 starts a pool of spawned processes that computes the answers of every
 file of ``MODULES`` this test run has imported, in ``MODULES`` order,
 while the tests run; each file then waits only for its own. A worker imports the
@@ -35,12 +35,13 @@ copyreg.pickle(_jax_column.Dictionary,
                lambda d: (_jax_column.Dictionary, (d.values,)))
 
 # the files whose answers the workers compute, in the order they start:
-# run order, but the distributed pipeline's first (the file after
+# run order (the datasets' first: their file runs early and waits), but the distributed pipeline's first (the file after
 # decimal, and its answers compile a program a case), the sweep's (about
 # 30 s of one core, for a file that runs late) right after the decimal
 # parts and the distributed operators' before nested's, so that no file
 # waits long
-MODULES = ("test_torch_dist_compiled:0", "test_torch_dist_compiled:1",
+MODULES = ("test_torch_dataset:0", "test_torch_dataset:1",
+           "test_torch_dist_compiled:0", "test_torch_dist_compiled:1",
            "test_torch_decimal:0", "test_torch_decimal:1",
            "test_torch_decimal:2", "test_torch_registry_sweep",
            "test_torch_fused", "test_torch_groupby", "test_torch_hashtable",

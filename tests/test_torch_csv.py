@@ -49,17 +49,18 @@ def port_read(data, **kw):
 
 
 def check_all(data: bytes, label=""):
-    """The port against the reference and pyarrow on the same bytes; an
-    all-null column is string-typed in the port (it has no null type) and
-    null-typed in both others (ROADMAP Queue 3)."""
+    """The port against the reference and pyarrow on the same bytes, the
+    column types included (an all-null column is null-typed in all
+    three)."""
     got = port_read(data)
     ref = ref_csv.read_csv(data).to_arrow()
     oracle = pacsv.read_csv(io.BytesIO(data))
     same_tables(got, oracle, label)
     same_tables(got, ref, label)
-    for f, o in zip(got.schema, oracle.schema):
-        want = pa.string() if pa.types.is_null(o.type) else o.type
-        assert f.type == want, (label, f.name, f.type, o.type)
+    for f, o, r in zip(got.schema, oracle.schema, ref.schema):
+        assert f.type == o.type, (label, f.name, f.type, o.type)
+        if pa.types.is_null(o.type):
+            assert pa.types.is_null(r.type), (label, f.name, r.type)
 
 
 CASES = {

@@ -998,6 +998,42 @@ def test_repaired_faults_on_card(cuda):
                 .compile()(big)):
         assert out["v_variance"].to_pylist() == [0.6666666666666666]
     _distributed_slice_faults(cuda)
+    _null_type_on_card(cuda)
+
+
+def _null_type_on_card(cuda):
+    """P4 on the card: a null column (int8 zeros, all-false validity) from
+    pyarrow, IPC, CSV and JSON, its calls, and the null scalar."""
+    import io
+
+    import pyarrow as pa
+
+    from arrow1_tpu_torch.io import csv as pcsv, ipc_native, json as pjson
+    from arrow1_tpu_torch.ops.cast import CastOptions
+
+    col = pt.interop.column_from_arrow(pa.nulls(5), device=cuda)
+    assert col.dtype == pt.null and col.data.device.type == "cuda"
+    assert not col.validity.any() and col.data.dtype == torch.int8
+    assert pt.call_function("is_null", [col]).to_pylist() == [True] * 5
+    for target in (pt.int64, pt.string):
+        got = pt.call_function("cast", [col],
+                               options=CastOptions.safe(target))
+        assert got.dtype == target and got.to_pylist() == [None] * 5
+    keep = pt.interop.column_from_arrow(pa.array([True, False] * 2 + [True]),
+                                        device=cuda)
+    assert pt.call_function("filter", [col, keep]).length == 3
+    batch = pt.RecordBatch((col,), ("n",))
+    buf = io.BytesIO()
+    ipc_native.write_file(buf, [batch, batch])
+    back = ipc_native.read_file(buf.getvalue())
+    assert [b["n"].dtype for b in back] == [pt.null, pt.null]
+    for table in (pcsv.read_csv(b"a,n\n1,\n2,\n"),
+                  pjson.read_json(b'{"a": 1, "n": null}\n{"a": 2}\n')):
+        n = table.batches[0]["n"]
+        assert n.dtype == pt.null and n.device.type == "cuda"
+    x = pt.interop.column_from_numpy(np.array([1, 2]), device=cuda)
+    assert pt.call_function("add", [x, pt.NA]).to_pylist() == [None, None]
+    assert pt.scalar(None).dtype == pt.null
 
 
 def _multiset(batch):
@@ -1465,3 +1501,80 @@ def test_runtime_reports_the_card(cuda, tmp_path):
     info = runtime.runtime_info()
     assert info.backend == "cuda" and info.device_kind == \
         torch.cuda.get_device_name(0)
+
+
+def test_dataset_partition_columns_on_card(cuda, tmp_path):
+    """A Hive dataset scanned onto the card by default: its partition
+    columns are made on the batch's device, the pushed filter launches K2,
+    and every column equals the CPU scan's, floats bit for bit."""
+    from arrow1_tpu_torch import dataset as ds
+    from arrow1_tpu_torch.compute_nested import move, same_nested
+    from arrow1_tpu_torch.table import concat_batches
+
+    rng = np.random.default_rng(23)
+    n = 6000
+    src = pt.record_batch({"year": rng.integers(2020, 2023, n),
+                           "v": rng.standard_normal(n),
+                           "s": rng.choice(np.array(["a", "b"], object), n)},
+                          device="cpu")
+    ds.write_dataset(src, str(tmp_path / "ds"), ["year"])
+    d = ds.dataset(str(tmp_path / "ds"), partitioning="hive")
+    pred = (pt.field("year") >= 2021) & (pt.field("v") > 0)
+    before = compact.launches
+    got = concat_batches(d.to_table(filter=pred).batches)
+    assert compact.launches > before
+    assert all(c.device.type == "cuda" for c in got.columns)
+    assert got["year"].data.device.type == "cuda"
+    want = concat_batches(d.to_table(filter=pred, device="cpu").batches)
+    assert same_nested(move(got, "cpu"), want) is None
+    assert torch.equal(_bits(got["v"].data.cpu()), _bits(want["v"].data))
+    q = (pt.query(d).filter(pt.field("year") == 2022)
+         .group_by(["s"], [("v", "sum")]).to_batch())
+    assert q["v_sum"].data.device.type == "cuda"
+
+
+def test_cabi_import_and_builders_on_card(cuda):
+    """C data capsules (pyarrow's and the port's own stream) imported onto
+    the card equal the CPU import; builders finish onto the card."""
+    import pyarrow as pa
+
+    from arrow1_tpu_torch import builders, cabi, cdata
+    from arrow1_tpu_torch.compute_nested import move, same_nested
+
+    rb = pa.record_batch({"i": pa.array([1, None, 3], pa.int64()),
+                          "f": pa.array([1.5, float("nan"), None]),
+                          "s": pa.array(["x", None, "yy"]),
+                          "d": pa.array([1, 2, None], pa.decimal128(9, 2)),
+                          "n": pa.nulls(3)})
+    got = cdata.import_batch(pa.Table.from_batches([rb]))
+    want = cdata.import_batch(pa.Table.from_batches([rb]), device="cpu")
+    assert all(c.device.type == "cuda" for c in got.columns)
+    assert same_nested(move(got, "cpu"), want) is None
+    back = cabi.import_stream_capsule(cabi.export_stream_capsule([got]))
+    assert same_nested(move(back[0], "cpu"), want) is None
+    vals = np.arange(1000, dtype=np.int64)
+    col = builders.Int64Builder().append_values(vals).finish()
+    assert col.device.type == "cuda" and col.data.cpu().tolist() == \
+        vals.tolist()
+    s = builders.StringBuilder().append_values(["b", None, "a"]).finish()
+    assert s.device.type == "cuda" and s.to_pylist() == ["b", None, "a"]
+
+
+def test_tensor_on_card(cuda):
+    """Dense, COO, CSR and matvec on the card against the CPU's."""
+    from arrow1_tpu_torch import tensor
+
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((500, 4))
+    x[rng.random(x.shape) < 0.6] = 0.0
+    t = tensor.Tensor.from_numpy(x)
+    assert t.device.type == "cuda"
+    coo, coo_c = t.to_coo(), tensor.Tensor.from_numpy(
+        x, device="cpu").to_coo()
+    assert torch.equal(coo.coords.cpu(), coo_c.coords)
+    csr, csr_c = coo.to_csr(), coo_c.to_csr()
+    assert torch.equal(csr.indptr.cpu(), csr_c.indptr)
+    assert torch.equal(csr.to_dense().data.cpu(), torch.from_numpy(x))
+    v = torch.tensor([1.0, -2.0, 0.5, 3.0], dtype=torch.float64)
+    y, y_c = csr.matvec(v.to(cuda)).cpu(), csr_c.matvec(v)
+    assert torch.allclose(y, y_c, rtol=1e-12, atol=0)

@@ -27,7 +27,7 @@ PORT_FILES = sorted((ROOT / "arrow1_tpu_torch").rglob("*.py")) + \
 # on its own line, so one failing does not hide the other
 _BLOCKED = ("import sys, traceback\n"
             "for m in ('jax', 'pyarrow', 'flatbuffers', 'zstandard',"
-            " 'pandas', 'cryptography'):\n"
+            " 'pandas', 'cryptography', 'grpc'):\n"
             "    sys.modules[m] = None\n"
             "def section(name, code):\n"
             "    try:\n"
@@ -162,14 +162,58 @@ FILE_FORMATS_RUN = (
     " for m in sys.modules)\n")
 
 
+DATASETS_BRIDGES = ("dataset", "fs", "fs_s3", "fs_hdfs", "cdata", "cabi",
+                    "builders", "validate", "tensor", "gandiva", "plasma",
+                    "testing")
+
+DATASETS_BRIDGES_RUN = (
+    "import os, sys, tempfile, importlib\n"
+    f"for m in {DATASETS_BRIDGES!r}:\n"
+    "    importlib.import_module('arrow1_tpu_torch.' + m)\n"
+    "import numpy as np\n"
+    "import arrow1_tpu_torch as pt\n"
+    "from arrow1_tpu_torch import (builders, cabi, dataset, gandiva,"
+    " plasma, tensor, validate)\n"
+    "b = pt.record_batch({'y': np.array([1, 2, 1, 2]), 'v': np.arange(4.0),"
+    " 's': np.array(['a', None, 'b', 'a'], dtype=object)}, device='cpu')\n"
+    "with tempfile.TemporaryDirectory() as d:\n"
+    "    dataset.write_dataset(pt.Table([b, b]), d, ['y'])\n"
+    "    ds = dataset.dataset(d, partitioning='hive')\n"
+    "    got = ds.to_table(filter=pt.field('y') == 2, device='cpu')\n"
+    "    assert got.combine_chunks()['v'].to_pylist() == [1.0, 3.0] * 2\n"
+    "back = cabi.import_stream_capsule(cabi.export_stream_capsule([b]),"
+    " device='cpu')\n"
+    "assert back[0]['s'].to_pylist() == ['a', None, 'b', 'a']\n"
+    "validate.validate_batch(back[0], full=True)\n"
+    "c = builders.StringBuilder().append_values(['x', None]).finish("
+    "device='cpu')\n"
+    "assert c.to_pylist() == ['x', None]\n"
+    "t = tensor.Tensor.from_numpy(np.eye(3), device='cpu')\n"
+    "assert t.to_coo().to_csr().to_dense().to_numpy().tolist() == "
+    "np.eye(3).tolist()\n"
+    "sel = gandiva.make_filter(b, pt.field('v') > 1).evaluate(b)\n"
+    "assert sel.to_column().to_pylist() == [2, 3]\n"
+    "st = plasma.PlasmaStore(f'/a1t-import-{os.getpid()}',"
+    " capacity=1 << 20, max_objects=4)\n"
+    "try:\n"
+    "    oid = st.put(b)\n"
+    "    assert st.get(oid, device='cpu').num_rows == 4\n"
+    "finally:\n"
+    "    st.destroy()\n"
+    "assert not any(m == 'arrow1_tpu' or m.startswith('arrow1_tpu.')"
+    " for m in sys.modules)\n")
+
+
 @pytest.fixture(scope="module")
 def blocked_run():
     """stdout of one interpreter with jax, pyarrow, flatbuffers,
-    zstandard, pandas and cryptography blocked that imports the port and
-    drives its host plane and its file formats."""
+    zstandard, pandas, cryptography and grpc blocked that imports the port
+    and drives its host plane, its file formats, its datasets and its
+    bridges."""
     code = (_BLOCKED + f"section('port', {PORT_IMPORTS!r})\n"
             f"section('host plane', {HOST_PLANE_RUN!r})\n"
-            f"section('file formats', {FILE_FORMATS_RUN!r})\n")
+            f"section('file formats', {FILE_FORMATS_RUN!r})\n"
+            f"section('datasets and bridges', {DATASETS_BRIDGES_RUN!r})\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
@@ -193,6 +237,15 @@ def test_file_formats_run_without_their_optional_packages(blocked_run):
     write_orc and read_orc run natively with jax, pyarrow, zstandard and
     cryptography blocked; ZSTD without zstandard names the package."""
     assert "SECTION file formats OK" in blocked_run, blocked_run
+
+
+def test_datasets_and_bridges_run_without_their_optional_packages(
+        blocked_run):
+    """dataset, fs, fs_s3, fs_hdfs, cdata, cabi, builders, validate,
+    tensor, gandiva, plasma and testing import, and a partitioned dataset,
+    a C stream, a builder, a tensor, a gandiva filter and the plasma store
+    run, with jax, pyarrow and grpc blocked."""
+    assert "SECTION datasets and bridges OK" in blocked_run, blocked_run
 
 
 @pytest.mark.parametrize("read", ["csv", "json", "parquet", "orc",
@@ -234,9 +287,11 @@ def test_no_jax_reference_or_module_level_pyarrow(path):
         assert not (top and root == "triton"), (path, name)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     data = {"k": np.arange(4, dtype=np.int64)}
+    pt.dataset.write_dataset(pt.record_batch(data, device="cpu"),
+                             str(tmp_path / "ds"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.record_batch(data)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -296,6 +351,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
         compaction_split.compact_split(mask, [np.zeros(1024, np.int64)])
     with pytest.raises(RuntimeError, match="CUDA"):
         probes.run_probes()
+    # datasets, the C data interface, builders and tensors
+    ds = pt.dataset.dataset(str(tmp_path / "ds"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ds.to_table()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.query(ds).to_table()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.cdata.import_column(pa.array([1, 2]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.builders.Int64Builder().append(1).finish()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.tensor.Tensor.from_numpy(np.eye(2))
+    assert ds.to_table(device="cpu").num_rows == 4
     # random makes data: on the card unless the caller names the CPU
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.call_function("random", [], length=4, initializer=1)

@@ -583,5 +583,4 @@ def test_pyarrow_facade_twin(tmp_path):
         w.write_table(tbl)
     assert ppq.read_table(str(tmp_path / "w.parquet"),
                           device="cpu").num_rows == 3
-    with pytest.raises(NotImplementedError, match="12d"):
-        ppq.ParquetDataset(p)
+    assert ppq.ParquetDataset(p).to_table(device="cpu").num_rows == 3

@@ -23,7 +23,11 @@ pyarrow, held against both on inputs of a few rows:
   group_by's key of a group of -0.0 rows, which came out as 0.0;
 - extract_regex and extract_regex_span, which gave RecordBatches (the
   span as ``g.offset``/``g.length`` columns) where the JAX package gives
-  a struct column (of fixed_size_list<int32>[2] for the span).
+  a struct column (of fixed_size_list<int32>[2] for the span);
+- the null type, which the port lacked: an all-null CSV or JSON column
+  was an all-null string column, ``scalar(None)`` was an int64 null and
+  there was no ``NA``. Held against both packages and pyarrow through
+  interop, IPC, CSV and JSON, and on a few calls over a null column.
 
 Integers, bools, validity and the sign of zero must match exactly. Where
 the JAX package and pyarrow disagree, pyarrow decides, and the test says
@@ -37,6 +41,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 import pytest
+import torch
 
 import arrow1_tpu as a1t
 from arrow1_tpu.exec.compiled import PipelineBuilder as JaxPipelineBuilder
@@ -849,3 +854,134 @@ def test_a_multi_batch_join_builds_its_hash_table_once(monkeypatch):
                              "w": np.arange(14)}, device="cpu")
     out = pt.query(probe).join(build, "k").to_batch()
     assert len(builds) == 1 and out.num_rows == 14
+
+
+# ---- the null type (P4) ----
+
+def _null_batches(kind, n, tmp_path):
+    """(port, reference, pyarrow) tables of an int64 column "x" and a
+    null column "n" of ``n`` rows, read through ``kind``."""
+    from arrow1_tpu.io import csv as ref_csv, json as ref_json
+    from arrow1_tpu.io import read_ipc as ref_read_ipc
+    from pyarrow import csv as pacsv, json as pajson
+
+    from arrow1_tpu_torch.interop import (record_batch_from_arrow,
+                                          table_to_arrow)
+    from arrow1_tpu_torch.io import csv as port_csv, json as port_json
+    from arrow1_tpu_torch.io import read_ipc, write_ipc
+
+    rb = pa.record_batch({"x": pa.array(range(n), pa.int64()),
+                          "n": pa.nulls(n)})
+    if kind == "interop":
+        got = record_batch_from_arrow(rb, device="cpu")
+        ref = a1t.record_batch(rb)
+        return (pt.Table([got]).to_arrow(), ref.to_arrow(),
+                pa.Table.from_batches([rb]))
+    if kind == "ipc":   # two batches, the port's file and pyarrow's
+        port_path, pa_path = tmp_path / "p.arrow", tmp_path / "a.arrow"
+        port_rb = record_batch_from_arrow(rb, device="cpu")
+        write_ipc(pt.Table([port_rb, port_rb]), str(port_path))
+        with pa.ipc.new_file(str(pa_path), rb.schema) as w:
+            w.write_batch(rb)
+            w.write_batch(rb)
+        from_pa = read_ipc(str(pa_path), device="cpu")
+        assert table_to_arrow(from_pa).equals(
+            pa.ipc.open_file(str(pa_path)).read_all())
+        return (read_ipc(str(port_path), device="cpu").to_arrow(),
+                ref_read_ipc(str(pa_path)).to_arrow(),
+                pa.ipc.open_file(str(port_path)).read_all())
+    if kind == "csv":
+        data = ("x,n\n" + "".join(f"{i},\n" for i in range(n))).encode()
+        return (port_csv.read_csv(data, device="cpu").to_arrow(),
+                ref_csv.read_csv(data).to_arrow(),
+                pacsv.read_csv(pa.BufferReader(data)))
+    data = "".join(f'{{"x": {i}, "n": null}}\n' for i in range(n)).encode()
+    return (port_json.read_json(data, device="cpu").to_arrow(),
+            ref_json.read_json(data).combine_chunks().to_arrow(),
+            pajson.read_json(pa.BufferReader(data)))
+
+
+@pytest.mark.parametrize("n", [3, 0])
+@pytest.mark.parametrize("kind", ["interop", "ipc", "csv", "json"])
+def test_null_type_round_trips(kind, n, tmp_path):
+    if kind == "json" and n == 0:
+        n = 1   # pyarrow's JSON reader infers no column from no row
+    got, ref, want = _null_batches(kind, n, tmp_path)
+    assert got.schema.field("n").type == pa.null()
+    assert ref.schema.field("n").type == pa.null()
+    assert want.schema.field("n").type == pa.null()
+    assert got.column("n").to_pylist() == [None] * want.num_rows
+    assert got.column("x").to_pylist() == want.column("x").to_pylist()
+
+
+def test_null_column_layout_and_scalars():
+    col = pt.interop.column_from_arrow(pa.nulls(4), device="cpu")
+    assert col.dtype == pt.null and col.dtype.is_null
+    assert col.data.dtype == torch.int8 and not col.data.any()
+    assert col.validity is not None and not col.validity.any()
+    assert pt.scalar(None).dtype == pt.null
+    assert not pt.scalar(None).is_valid
+    assert a1t.scalar(None).dtype.kind == "null"
+    assert pt.NA.dtype == pt.null and not pt.NA.is_valid
+    assert a1t.NA.dtype.kind == "null"
+    x = pt.interop.column_from_arrow(pa.array([1, 2], pa.int64()),
+                                     device="cpu")
+    got = pt.call_function("add", [x, pt.scalar(None)])
+    want = pc.add(pa.array([1, 2], pa.int64()), pa.scalar(None))
+    assert got.to_arrow().equals(want)
+
+
+# name -> (port call, reference call, pyarrow answer); None as the
+# reference's call: the JAX package raises, pyarrow decides (Queue 3)
+_NULL_CALLS = {
+    "is_null": ("is_null", None),
+    "is_valid": ("is_valid", None),
+    "take": ("take", [0, 2]),
+    "filter": ("filter", [True, False, True, True]),
+    "cast_int64": ("cast", "int64"),
+    "cast_string": ("cast", "string"),
+}
+# the JAX package's cast of zero null rows gives one row
+# (ops/cast.py: jnp.zeros(n or 1)); pyarrow decides (Queue 3)
+_NULL_REF_FAULTS = {("cast_int64", 0)}
+
+
+@pytest.mark.parametrize("n", [4, 0])
+@pytest.mark.parametrize("name", list(_NULL_CALLS))
+def test_calls_on_a_null_column_match_pyarrow(name, n):
+    from arrow1_tpu.errors import Invalid as RefInvalid
+    from arrow1_tpu.ops.cast import CastOptions as RefCast
+
+    from arrow1_tpu_torch.ops.cast import CastOptions
+
+    fn, arg = _NULL_CALLS[name]
+    if n == 0 and name in ("take", "filter"):
+        arg = []
+    arr = pa.nulls(n)
+    port_col = pt.interop.column_from_arrow(arr, device="cpu")
+    ref_col = a1t.column(arr)
+    if fn == "cast":
+        want = pc.cast(arr, getattr(pa, arg)())
+        got = pt.call_function("cast", [port_col], options=CastOptions.safe(
+            getattr(pt, arg)))
+        ref = None
+        try:
+            ref = a1t.call_function("cast", [ref_col], options=RefCast.safe(
+                getattr(a1t, arg)))
+        except RefInvalid:
+            assert name == "cast_string"   # pyarrow decides
+    elif arg is None:
+        want = getattr(pc, fn)(arr)
+        got = pt.call_function(fn, [port_col])
+        ref = a1t.call_function(fn, [ref_col])
+    else:
+        other = pa.array(arg, pa.bool_() if fn == "filter" else pa.int64())
+        want = getattr(pc, fn)(arr, other)
+        got = pt.call_function(fn, [port_col, pt.interop.column_from_arrow(
+            other, device="cpu")])
+        ref = a1t.call_function(fn, [ref_col, a1t.column(other)])
+    assert got.to_arrow().type == want.type
+    assert got.to_arrow().to_pylist() == want.to_pylist()
+    if ref is not None:
+        same = ref.to_arrow().to_pylist() == want.to_pylist()
+        assert same == ((name, n) not in _NULL_REF_FAULTS)

@@ -477,7 +477,7 @@ def test_query_select_project_limit_and_sources(inputs):
     assert proj["q2"].to_pylist() == [
         2 * q for q in li.batches[0]["l_quantity"].to_pylist()[:5]]
     assert pt.query(li).count_rows() == inputs["li"].num_rows
-    with pytest.raises(Invalid, match="dataset sources"):
+    with pytest.raises(Invalid, match="unsupported query source"):
         pt.query(inputs["li"].to_arrow()).to_table()
 
 
